@@ -1,0 +1,656 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``mile_tpu_torch/csrc/`` with nvcc,
+holds each kernel against its plain PyTorch version on the card, drives the
+airfoil MCLMC pipeline (``configs/illustrative_airfoil_mclmc.yaml``) at full
+width through ``BDETrainer`` with only the step counts cut, checks that the
+pipeline went through the kernels, and times the kernels and the sampler.
+
+It needs a CUDA device and the repository around it: without either it
+exits non-zero and prints no result. It imports nothing of JAX or of the
+JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
+``{"ok": true, "device": {...}}``; any failed phase makes the exit code 1.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CONFIG = ROOT / 'configs' / 'illustrative_airfoil_mclmc.yaml'
+RESULTS = ROOT / 'results' / 'chip_smoke'
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
+# operations/s; both kernels' work is 32-bit arithmetic.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# 32-bit operations per element that each function needs (not counting the
+# kernels' re-reads): K1 g*s, |g'|^2, u.g', a g' + b u, |u'|^2, scale;
+# K3 Philox4x32-10 (10 rounds of 2 mul-hi, 2 mul-lo, 4 xor, 2 key adds),
+# Box-Muller (2 int->float, 2 fma, log, sqrt, cospi, mul), u + nu z,
+# |w|^2, scale.
+K1_OPS_PER_ELEM = 11
+K3_OPS_PER_ELEM = 100 + 10 + 5
+
+MAIN_SHAPE = (12, 674)
+CUT = {'training.warmstart.max_epochs': 20,
+       'training.sampler.warmup_steps': 200,
+       'training.sampler.n_samples': 200,
+       'training.sampler.n_thinning': 10}
+
+
+def fail(msg: str) -> None:
+    print(f'chip_smoke: {msg}', file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Smoke:
+    def __init__(self, torch, device: str = 'cuda'):
+        self.torch = torch
+        self.dev = torch.device(device)
+        self.failures: list[str] = []
+        self.k1_err = 0.0
+        self.k3_err = 0.0
+        self.launches = {}
+        self.timings = {}
+
+    # ---------------------------------------------------------- helpers
+    def check(self, ok: bool, what: str) -> None:
+        print(f'  [{"ok" if ok else "FAIL"}] {what}')
+        if not ok:
+            self.failures.append(what)
+
+    def phase(self, name: str, fn) -> bool:
+        print(f'== {name}', flush=True)
+        t0 = time.perf_counter()
+        try:
+            fn()
+            self.torch.cuda.synchronize()
+        except Exception:
+            traceback.print_exc(file=sys.stdout)
+            self.failures.append(f'{name}: exception')
+            print(f'== {name}: FAILED after {time.perf_counter() - t0:.1f} s',
+                  flush=True)
+            return False
+        print(f'== {name}: {time.perf_counter() - t0:.1f} s', flush=True)
+        return True
+
+    def cuda_tensor(self, a):
+        return self.torch.from_numpy(a).to(self.dev)
+
+    # ------------------------------------------------------------ build
+    def build(self):
+        from mile_tpu_torch.ops import build
+
+        path = build.build('isokinetic')
+        print(f'  built isokinetic.cu -> {path.relative_to(ROOT)}')
+        for line in path.with_suffix('.log').read_text().splitlines():
+            if 'registers' in line or 'spill' in line:
+                print(f'    ptxas: {line.strip()}')
+        build.isokinetic_library()
+
+    # ----------------------------------------------------------- K1
+    def k1(self):
+        import numpy as np
+
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        coef = 0.1931833275037836
+        for n_chains, dim in [MAIN_SHAPE, (1, 674), (5, 2048), (2, 300_000)]:
+            rng = np.random.default_rng(dim + n_chains)
+            g = rng.normal(size=(n_chains, dim)).astype(np.float32)
+            # u partly aligned with g, and delta = eps|g|/(d-1) of order 1,
+            # keep dK = (d-1)(delta - log 2 + log1p(...)) away from the
+            # cancellation where float32 rounding alone exceeds rtol 2e-4
+            u = g + rng.normal(size=g.shape).astype(np.float32)
+            u /= np.linalg.norm(u, axis=1, keepdims=True)
+            sdc = rng.uniform(0.5, 1.5, size=g.shape).astype(np.float32)
+            eps = (rng.uniform(0.5, 2.0, n_chains)
+                   * dim ** 0.5 / coef).astype(np.float32)
+            u_t, g_t, eps_t, sdc_t = map(self.cuda_tensor, (u, g, eps, sdc))
+            for label, sd in (('per-chain', sdc_t), ('shared', sdc_t[0]),
+                              ('none', None)):
+                ku, kdk = ops.isokinetic_momentum(u_t, g_t, eps_t, sd, coef)
+                pu, pdk = ops.isokinetic_momentum_plain(u_t, g_t, eps_t, sd,
+                                                        coef)
+                self.torch.cuda.synchronize()
+                err = float((ku - pu).abs().max())
+                rel = float(((kdk - pdk).abs()
+                             / (1e-5 + 2e-4 * pdk.abs())).max())
+                self.k1_err = max(self.k1_err, err)
+                self.check(err <= 2e-5 and rel <= 1.0
+                           and bool(self.torch.isfinite(kdk).all()),
+                           f'K1 ({n_chains}, {dim}) sqrt_diag_cov {label}: '
+                           f'max|du| {err:.2e} (atol 2e-5), dK within '
+                           f'{rel:.2f} of rtol 2e-4 + atol 1e-5')
+        for n_chains, dim in [(3, 128), (1, 674)]:
+            u = self.torch.randn(n_chains, dim, device=self.dev)
+            u = u / u.norm(dim=1, keepdim=True)
+            ku, kdk = ops.isokinetic_momentum(
+                u, self.torch.zeros_like(u),
+                self.torch.full((n_chains,), 0.1, device=self.dev))
+            err = float((ku - u).abs().max())
+            # dK = (d-1)(log1p(1) - log 2): one float32 rounding of log 2,
+            # times d-1
+            bound = (dim - 1) * 1.2e-7
+            self.check(err <= 1e-6 and float(kdk.abs().max()) <= bound,
+                       f'K1 zero gradient ({n_chains}, {dim}): identity, '
+                       f'max|du| {err:.1e} (atol 1e-6), max|dK| '
+                       f'{float(kdk.abs().max()):.1e} (<= {bound:.1e})')
+        u = self.torch.zeros(2, 16, device=self.dev)
+        for what, args in (
+                ('float64', (u.double(), u.double(), 0.1)),
+                ('non-contiguous g', (u, u.t().contiguous().t(), 0.1)),
+                ('(3, dim) sqrt_diag_cov for 2 chains',
+                 (u, u, 0.1, self.torch.ones(3, 16, device=self.dev)))):
+            try:
+                ops.isokinetic_momentum(*args)
+                refused = False
+            except ValueError:
+                refused = True
+            self.check(refused, f'K1 refuses {what} before launching')
+
+    # ----------------------------------------------------------- K3
+    def k3(self):
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        gen = torch.Generator().manual_seed(3)
+
+        def unit(n_chains, dim):
+            u = torch.randn(n_chains, dim, generator=gen)
+            return (u / u.norm(dim=1, keepdim=True)).to(self.dev)
+
+        for n_chains, dim in [MAIN_SHAPE, (6, 674), (1, 674), (2, 300_000)]:
+            u = unit(n_chains, dim)
+            z = torch.randn(n_chains, dim, generator=gen).to(self.dev)
+            eps = torch.rand(n_chains, generator=gen).to(self.dev) * 0.2 + 0.05
+            L = torch.rand(n_chains, generator=gen).to(self.dev) * 2.0 + 0.5
+            out = ops.partial_refresh(u, eps, L, z=z)
+            err = float((out - ops.partial_refresh_plain(u, eps, L, z))
+                        .abs().max())
+            self.k3_err = max(self.k3_err, err)
+            self.check(err <= 1e-6, f'K3 injected noise ({n_chains}, {dim}):'
+                       f' max|du| {err:.2e} (atol 1e-6)')
+
+        # Philox mode: the statistics of tests/test_pallas_ops.py
+        for n_chains, dim in [(6, 674), (1, 674)]:
+            u = unit(n_chains, dim)
+            eps = torch.full((n_chains,), 0.1, device=self.dev)
+            L = torch.ones(n_chains, device=self.dev)
+            dots, outs = [], []
+            for seed in range(20):
+                out = ops.partial_refresh(u, eps, L, seed=seed, counter=0)
+                outs.append(out)
+                dots.append((out * u).sum(dim=1))
+            outs = torch.stack(outs)
+            dots = torch.stack(dots)
+            norm_err = float((outs.norm(dim=-1) - 1.0).abs().max())
+            self.check(norm_err <= 1e-5, f'K3 Philox ({n_chains}, {dim}): '
+                       f'unit norm, max err {norm_err:.1e} (1e-5)')
+            nu2 = (math.exp(2 * 0.1 / 1.0) - 1.0) / dim
+            want = 1.0 / math.sqrt(1.0 + nu2 * dim)
+            got = float(dots.mean())
+            self.check(abs(got - want) < 0.1 and float(dots.std()) > 1e-4,
+                       f'K3 Philox ({n_chains}, {dim}): E<u,u\'> {got:.4f} '
+                       f'vs {want:.4f} (0.1), std over seeds '
+                       f'{float(dots.std()):.2e} (> 1e-4)')
+            if n_chains > 1:
+                corr = torch.corrcoef((outs[0] - u))
+                off = corr[~torch.eye(n_chains, dtype=torch.bool,
+                                      device=self.dev)]
+                self.check(float(off.abs().max()) < 0.2,
+                           f'K3 Philox ({n_chains}, {dim}): cross-chain '
+                           f'|corr| {float(off.abs().max()):.3f} (< 0.2)')
+            a = ops.partial_refresh(u, eps, L, seed=7, counter=0)
+            b = ops.partial_refresh(u, eps, L, seed=7, counter=1)
+            again = ops.partial_refresh(u, eps, L, seed=7, counter=0)
+            self.check(bool(torch.equal(a, again)) and not torch.allclose(a, b),
+                       f'K3 Philox ({n_chains}, {dim}): same key same noise, '
+                       f'another step counter other noise')
+
+        # the normals themselves: with nu^2 d >> 1 the refreshed vector is
+        # nearly z/|z|, so sqrt(d) u' is nearly standard normal
+        dim = 300_000
+        u = torch.full((2, dim), dim ** -0.5, device=self.dev)
+        eps, L = torch.full((2,), 5.0, device=self.dev), \
+            torch.ones(2, device=self.dev)
+        x = ops.partial_refresh(u, eps, L, seed=11, counter=3) * dim ** 0.5
+        mean, var = float(x.mean()), float(x.var())
+        kurt = float(((x - mean) ** 4).mean() / var ** 2)
+        self.check(abs(mean) < 0.02 and abs(var - 1.0) < 0.02
+                   and abs(kurt - 3.0) < 0.1,
+                   f'K3 Philox normals (2, {dim}): mean {mean:.4f} (0.02), '
+                   f'var {var:.4f} (1 +- 0.02), kurtosis {kurt:.3f} (3 +- 0.1)')
+
+    # ------------------------------------------------------- main path
+    def main_path(self):
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        (config,) = Config.from_file(CONFIG)
+        config = config.replace(saving_dir=str(RESULTS.parent),
+                                experiment_name=RESULTS.name, **CUT)
+        scfg = config.training.sampler
+        shutil.rmtree(RESULTS, ignore_errors=True)
+        trainer = BDETrainer(config, device=self.dev)
+        self.check(trainer.bayes.dim == MAIN_SHAPE[1]
+                   and scfg.n_chains == MAIN_SHAPE[0],
+                   f'full width: dim {trainer.bayes.dim}, '
+                   f'{scfg.n_chains} chains, '
+                   f'{trainer.loader.arrays("train")[0].shape[0]} training '
+                   f'rows')
+
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # BDETrainer.train() is these three phases, called one by one here
+        # to time each
+        t0 = time.perf_counter()
+        members = trainer.train_warmstart()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = trainer.start_sampling(members)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        metrics = trainer.evaluate(members, result)
+        t3 = time.perf_counter()
+        self.launches = {'isokinetic_momentum': ops.isokinetic_momentum.launches,
+                         'partial_refresh': ops.partial_refresh.launches}
+        self.timings['main_path_peak_device_mib'] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        n_steps = scfg.warmup_steps + n_kept * scfg.n_thinning
+        self.check(self.launches['isokinetic_momentum'] == 3 * n_steps
+                   and self.launches['partial_refresh'] == n_steps,
+                   f'launches in the main path: K1 '
+                   f'{self.launches["isokinetic_momentum"]} (3 x {n_steps} '
+                   f'MCLMC steps), K3 {self.launches["partial_refresh"]} '
+                   f'(1 x {n_steps})')
+        finite = {k: float(metrics[k]) for k in
+                  ('lppd', 'rmse', 'de_lppd', 'cal_error', 'nll', 'de_rmse')}
+        self.check(all(math.isfinite(v) for v in finite.values()),
+                   f'finite metrics {finite}')
+        for k in ('fs_split_rhat', 'fs_ess'):
+            print(f'  {k}: {metrics.get(k)}')
+        samples = load_flat_samples(trainer.samples_dir)
+        self.check(samples.shape == (MAIN_SHAPE[0], n_kept, MAIN_SHAPE[1])
+                   and bool(np.isfinite(samples).all()),
+                   f'samples directory holds {samples.shape}, finite')
+        print(f'  tuned step_size {np.round(result.tuned["step_size"], 5)}')
+        print(f'  tuned L {np.round(result.tuned["L"], 4)}')
+        # the sampling phase of run_mclmc, after the tuner: every step,
+        # the dE accumulation, the thinned writes and the copy to the host
+        n_sampled = n_kept * scfg.n_thinning
+        rate = MAIN_SHAPE[0] * n_sampled / result.seconds['sampling']
+        self.timings.update({
+            'main_path_s': {'warmstart': t1 - t0, 'warmup_and_sampling':
+                            t2 - t1, 'evaluation': t3 - t2,
+                            **{f'run_mclmc_{k}': v
+                               for k, v in result.seconds.items()}},
+            'main_path_mclmc_steps': n_steps,
+            'sampling_samples_per_s': rate,
+            'sampling_step_ms': 1e3 * result.seconds['sampling'] / n_sampled})
+        print(f'  sampling phase of run_mclmc: {n_sampled} steps of '
+              f'{MAIN_SHAPE[0]} chains in {result.seconds["sampling"]:.3f} s,'
+              f' {rate:.0f} samples/s')
+        t0 = time.perf_counter()
+        trainer.train_warmstart()     # again, with the card warmed up
+        torch.cuda.synchronize()
+        self.timings['main_path_s']['warmstart_repeat'] = \
+            time.perf_counter() - t0
+        self._agreement(trainer, result)
+        self._profile(trainer, result)
+
+    def _kernel(self, trainer, result, device, dtype, normals):
+        """The main path's tuned MCLMC kernel on ``device`` in ``dtype``,
+        fed the injected normals ``(C, dim)`` one per step (None: its own
+        Philox noise, as in the main path). Returns
+        ``(start, step, logdensity_and_grad)``: ``start(state)`` is a
+        fresh state at another state's position and momentum,
+        ``step(state)`` one step."""
+        torch = self.torch
+        from mile_tpu_torch.mcmc import mclmc
+
+        scfg = trainer.config.training.sampler
+        x, y = (torch.from_numpy(a).to(device, dtype)
+                for a in trainer.loader.numpy_arrays('train'))
+        vg = trainer.bayes.logdensity_and_grad_fn(x, y)
+        kernel = mclmc.build_kernel(
+            vg, torch.Generator().manual_seed(0), integrator=scfg.integrator,
+            noise=None if normals is None else iter(
+                [z.to(device, dtype) for z in normals]))
+        tuned = {k: torch.as_tensor(v).to(device, dtype)
+                 for k, v in result.tuned.items()}
+        sdc = tuned['sqrt_diag_cov'] if scfg.diagonal_preconditioning \
+            else None
+
+        def start(state):
+            return mclmc.init(state.position.to(device, dtype), vg,
+                              momentum=state.momentum.to(device, dtype))
+
+        def step(state):
+            return kernel(state, tuned['L'], tuned['step_size'], sdc)
+
+        return start, step, vg
+
+    def _steps(self, trainer, result, device, dtype, state, normals):
+        """``len(normals)`` steps of :meth:`_kernel` from ``state``, in
+        exact float32 matmuls. Returns the states (the start included), the
+        infos and the log-density."""
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        start, step, vg = self._kernel(trainer, result, device, dtype,
+                                       normals)
+        states, infos = [start(state)], []
+        with matmul_precision('float32'):
+            for _ in normals:
+                state, info = step(states[-1])
+                states.append(state)
+                infos.append(info)
+        return states, infos, vg
+
+    def _agreement(self, trainer, result):
+        """Ten MCLMC steps through the kernels on the card, from the main
+        path's final state with injected normals, held against the plain
+        versions on the CPU.
+
+        Trajectory: the same ten steps on the CPU in float32 end within
+        atol 1e-4 of the card's positions, and the log-density of the
+        card's final positions, computed on the CPU, agrees with the
+        card's to rtol 1e-5.
+
+        Energy, step by step: each card step's dE = dK - logp' + logp is
+        held against the same step taken on the CPU in float32 from the
+        card's own state (position and momentum). Starting every step from
+        the card's state keeps the chaos of the dynamics, which amplifies
+        rounding over the ten steps, out of the comparison. dE cancels
+        terms of the size of |logp| (10^2 to 10^3 here), so the bound is 64
+        float32 units of their size, 64 * 2^-23 * (|logp| + |logp'| + |dK|).
+        The same step in float64 is the witness: the card's and the CPU's
+        float32 dE stand as far from it as each other, because what parts
+        them from it (up to hundreds of these units at the cut tuner's
+        large step sizes) is float32 rounding that both paths share."""
+        torch = self.torch
+        f32, f64 = torch.float32, torch.float64
+        n_steps, bound_units = 10, 64.0
+        gen = torch.Generator().manual_seed(5)
+        normals = [torch.randn(*MAIN_SHAPE, generator=gen)
+                   for _ in range(n_steps)]
+        card_states, card_infos, _ = self._steps(
+            trainer, result, self.dev, f32, result.final_state, normals)
+        cpu_states, _, cpu_vg = self._steps(
+            trainer, result, 'cpu', f32, result.final_state, normals)
+        card_x = card_states[-1].position.cpu()
+        dx = float((card_x - cpu_states[-1].position).abs().max())
+        cpu_logp = cpu_vg(card_x)[0]
+        dlogp = float(((card_infos[-1].logdensity.cpu() - cpu_logp).abs()
+                       / cpu_logp.abs()).max())
+        self.check(dx <= 1e-4 and dlogp <= 1e-5,
+                   f'{n_steps} MCLMC steps, card (kernels) vs CPU (plain), '
+                   f'same normals: max|dx| {dx:.2e} (atol 1e-4), logp of '
+                   f'the card\'s final positions rel {dlogp:.2e} (rtol 1e-5)')
+
+        units = {'card_vs_cpu': [], 'card_vs_f64': [], 'cpu_vs_f64': []}
+        card_abs = []
+        for i in range(n_steps):
+            card_de = card_infos[i].energy_change.cpu().double()
+            one = {}
+            for dtype in (f32, f64):
+                states, (info,), _ = self._steps(
+                    trainer, result, 'cpu', dtype, card_states[i],
+                    normals[i:i + 1])
+                one[dtype] = (states[0].logdensity.double(),
+                              info.logdensity.double(),
+                              info.kinetic_change.double(),
+                              info.energy_change.double())
+            logp, logp_new, dk, cpu_de = one[f32]
+            unit = 2.0 ** -23 * (logp.abs() + logp_new.abs() + dk.abs())
+            f64_de = one[f64][3]
+            card_abs.append(float((card_de - cpu_de).abs().max()))
+            for key, diff in (('card_vs_cpu', card_de - cpu_de),
+                              ('card_vs_f64', card_de - f64_de),
+                              ('cpu_vs_f64', cpu_de - f64_de)):
+                units[key].append(float((diff.abs() / unit).max()))
+        dE = torch.stack([i.energy_change.cpu() for i in card_infos])
+        self.timings['energy_check'] = {
+            **{f'{k}_max_units': max(v) for k, v in units.items()},
+            'card_vs_cpu_max_abs': max(card_abs),
+            'card_abs_dE_median': float(dE.abs().median()),
+            'card_abs_dE_max': float(dE.abs().max())}
+        self.check(max(units['card_vs_cpu']) <= bound_units,
+                   f'dE of each of {n_steps} card steps vs the same step on '
+                   f'the CPU from the card\'s state: max '
+                   f'{max(units["card_vs_cpu"]):.1f} float32 units of '
+                   f'|logp|+|logp\'|+|dK| (<= {bound_units:.0f}), max abs '
+                   f'{max(card_abs):.2e} against median |dE| '
+                   f'{float(dE.abs().median()):.2e}; witness, float64: card '
+                   f'{max(units["card_vs_f64"]):.1f}, CPU float32 '
+                   f'{max(units["cpu_vs_f64"]):.1f} units away')
+
+    def _profile(self, trainer, result, n_steps: int = 50):
+        """Where a step's time goes: device time by kernel over ``n_steps``
+        bare MCLMC steps (the step alone, without run_mclmc's accumulation
+        and copies), the device's busy share of their wall time, and the
+        card's clock and power drawn meanwhile. Reported, not checked: the
+        profiler is an extra view."""
+        torch = self.torch
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            from mile_tpu_torch.utils.precision import matmul_precision
+
+            start, step, _ = self._kernel(trainer, result, self.dev,
+                                          torch.float32, None)
+            precision = trainer.config.training.sampler.matmul_precision
+            state = start(result.final_state)
+            with matmul_precision(precision):
+                for _ in range(3):   # warm up
+                    state, _ = step(state)
+            card = subprocess.Popen(
+                ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+                 '--format=csv,noheader', '-lms', '200'],
+                stdout=subprocess.PIPE, text=True)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof, \
+                    matmul_precision(precision):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n_steps):
+                    state, _ = step(state)
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            card.terminate()
+            self.timings['card_during_profile'] = \
+                card.communicate(timeout=60)[0].strip().splitlines()
+            rows = []
+            for e in prof.key_averages():
+                dev = getattr(e, 'self_device_time_total',
+                              getattr(e, 'self_cuda_time_total', 0))
+                if dev > 0 and e.device_type.name == 'CUDA':
+                    rows.append((dev, e.count, e.key))
+            busy = sum(r[0] for r in rows)
+            rows.sort(reverse=True)
+            self.timings['profile'] = {
+                'steps': n_steps, 'wall_ms_per_step': wall_us / n_steps / 1e3,
+                'device_ms_per_step': busy / n_steps / 1e3,
+                'device_busy_share': busy / wall_us,
+                'kernels_per_step': sum(r[1] for r in rows) / n_steps,
+                'top': [{'name': k[:60], 'launches_per_step': c / n_steps,
+                         'us_per_step': d / n_steps} for d, c, k in rows[:8]]}
+            print(f'  profile {json.dumps(self.timings["profile"])}')
+        except Exception as exc:
+            print(f'  profiler unavailable: {exc!r}')
+
+    # ---------------------------------------------------------- timings
+    def _time_ms(self, fn, n: int = 500, reps: int = 5) -> float:
+        torch = self.torch
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / n)
+        return statistics.median(out)
+
+    def _graph_ms(self, fn, n: int = 200) -> float | None:
+        """Device time per call with the launches replayed from a CUDA
+        graph, so that host launch cost is out of the measurement."""
+        torch = self.torch
+        try:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(3):
+                    fn()
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(n):
+                    fn()
+            return self._time_ms(graph.replay, n=5, reps=5) / n
+        except Exception as exc:   # reported, not fatal: an extra column
+            print(f'  graph timing unavailable: {exc!r}')
+            return None
+
+    def kernel_timings(self):
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        n_chains, dim = MAIN_SHAPE
+        gen = torch.Generator().manual_seed(9)
+        u = torch.randn(n_chains, dim, generator=gen)
+        u = (u / u.norm(dim=1, keepdim=True)).to(self.dev)
+        g = torch.randn(n_chains, dim, generator=gen).to(self.dev)
+        eps = torch.full((n_chains,), 0.05, device=self.dev)
+        L = torch.full((n_chains,), 1.5, device=self.dev)
+        z = torch.randn(n_chains, dim, generator=gen).to(self.dev)
+        b1 = 0.1931833275037836
+        elems = n_chains * dim
+        # the main path's inputs: no preconditioner (airfoil tunes none)
+        k1_bytes = 4 * (3 * elems + 2 * n_chains)   # u, g, eps in; u', dK out
+        k3_bytes = 4 * (2 * elems + 2 * n_chains)   # u, eps, L in; u' out
+        cases = {
+            'isokinetic_momentum': (
+                lambda: ops.isokinetic_momentum(u, g, eps, None, b1),
+                lambda: ops.isokinetic_momentum_plain(u, g, eps, None, b1),
+                k1_bytes, K1_OPS_PER_ELEM * elems),
+            'partial_refresh': (
+                lambda: ops.partial_refresh(u, eps, L, seed=1, counter=2),
+                lambda: ops.partial_refresh_plain(u, eps, L, z),
+                k3_bytes, K3_OPS_PER_ELEM * elems),
+        }
+        for name, (kernel, plain, nbytes, nops) in cases.items():
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * nops / F32_OPS_PER_S
+            self.timings[name] = {
+                'ms': self._time_ms(kernel),
+                'plain_ms': self._time_ms(plain),
+                'graph_ms': self._graph_ms(kernel),
+                'plain_graph_ms': self._graph_ms(plain),
+                'bound_ms': max(t_bytes, t_ops),
+                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+                'bytes': nbytes, 'operations': nops}
+            print(f'  {name} {json.dumps(self.timings[name])}')
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as exc:
+        fail(f'PyTorch is not importable: {exc}')
+    if not torch.cuda.is_available():
+        fail('no CUDA device: this script only runs on the GPU')
+    if not (ROOT / 'mile_tpu_torch' / 'csrc').is_dir() or not CONFIG.exists():
+        fail(f'the repository is not around this script ({ROOT})')
+    sys.path.insert(0, str(ROOT))
+    import mile_tpu_torch
+
+    if Path(mile_tpu_torch.__file__).resolve().parents[1] != ROOT:
+        fail(f'imported mile_tpu_torch from {mile_tpu_torch.__file__}, '
+             f'not from {ROOT}')
+    if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))
+           or m == 'mile_tpu' for m in sys.modules):
+        fail('JAX or the JAX package was imported')
+
+    t_start = time.perf_counter()
+    smoke = Smoke(torch)
+    card = card_line()
+    print(card, flush=True)
+    built = smoke.phase('build (nvcc, sm_90a)', smoke.build)
+    if built:
+        smoke.phase('K1 isokinetic_momentum vs plain', smoke.k1)
+        smoke.phase('K3 partial_refresh vs plain, Philox statistics',
+                    smoke.k3)
+        smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim 674',
+                    smoke.main_path)
+        smoke.phase('timings at (12, 674)', smoke.kernel_timings)
+    if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))
+           or m == 'mile_tpu' for m in sys.modules):
+        smoke.failures.append('JAX or the JAX package was imported')
+
+    timings = smoke.timings
+    print(json.dumps({'timings': timings, 'card': card,
+                      'wall_s': time.perf_counter() - t_start}))
+    kernels = []
+    for name, source_fn, replaces, err in (
+            ('isokinetic_momentum', 'isokinetic_momentum_kernel',
+             'mile_tpu/ops/isokinetic.py:120 (_batched_momentum_kernel); '
+             ':71 (_momentum_kernel) with C = 1', smoke.k1_err),
+            ('partial_refresh', 'partial_refresh_kernel',
+             'mile_tpu/ops/isokinetic.py:313 (_batched_refresh_kernel); '
+             ':265 (_refresh_kernel) with C = 1', smoke.k3_err)):
+        t = timings.get(name, {})
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'mile_tpu_torch/csrc/isokinetic.cu ({source_fn})',
+            'replaces': replaces,
+            'launches': smoke.launches.get(name, 0),
+            'max_abs_err': err,
+            'ms': t.get('ms'), 'plain_ms': t.get('plain_ms'),
+            'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),
+            # no single PyTorch call computes either op
+            'library_ms': None})
+    print(json.dumps({'kernels': kernels}))
+    if smoke.failures:
+        print('chip_smoke: FAILED: ' + '; '.join(smoke.failures),
+              file=sys.stderr)
+        return 1
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Top-level experiment configuration (counterpart of
+``mile_tpu/config/core.py``). The same YAMLs load unchanged."""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from pathlib import Path
+from typing import Any, Mapping
+
+from mile_tpu_torch.config.base import BaseConfig
+from mile_tpu_torch.config.data import DataConfig
+from mile_tpu_torch.config.models import ModelConfig
+from mile_tpu_torch.config.training import TrainingConfig
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config(BaseConfig):
+    """Root config: data + model + training + bookkeeping."""
+
+    saving_dir: str
+    experiment_name: str
+    data: DataConfig
+    model: ModelConfig
+    training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
+    rng: int = 42
+    logging: bool = True
+    profile: bool = False
+
+    # ``model:`` needs polymorphic resolution by its ``model`` name.
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any], _path: str = '') -> 'Config':
+        data = dict(data)
+        if 'model' in data and isinstance(data['model'], dict):
+            data['model'] = ModelConfig.resolve(data['model'])
+        return super().from_dict(data, _path=_path)
+
+    @property
+    def experiment_dir(self) -> Path:
+        return Path(self.saving_dir) / self.experiment_name
+
+    def setup_dir(self) -> Path:
+        """Create the experiment dir (timestamp-suffixed on collision),
+        dump config.yaml, and configure logging."""
+        exp_dir = self.experiment_dir
+        if exp_dir.exists() and any(exp_dir.iterdir()):
+            stamped = Path(f'{exp_dir}_{int(time.time())}')
+            logger.warning('experiment dir %s exists; using %s', exp_dir, stamped)
+            exp_dir = stamped
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        self.to_yaml(exp_dir / 'config.yaml')
+        if self.logging:
+            self._setup_logging(exp_dir)
+        return exp_dir
+
+    def _setup_logging(self, exp_dir: Path) -> None:
+        root = logging.getLogger()
+        root.setLevel(logging.INFO)
+        # one experiment log at a time: drop the previous experiment's handler
+        for h in list(root.handlers):
+            if getattr(h, '_mile_experiment_log', False):
+                root.removeHandler(h)
+                h.close()
+        fmt = logging.Formatter('%(asctime)s %(levelname)s %(name)s: %(message)s')
+        fh = logging.FileHandler(exp_dir / 'training.log')
+        fh.setFormatter(fmt)
+        fh._mile_experiment_log = True
+        root.addHandler(fh)
+
+    def get_model(self, n_features: int):
+        """Build the configured network for ``n_features`` inputs."""
+        from mile_tpu_torch.models import build_model
+
+        return build_model(self.model, n_features)

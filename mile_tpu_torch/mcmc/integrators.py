@@ -1,0 +1,75 @@
+"""Isokinetic integrators over chain-batched flat parameters
+(counterpart of ``mile_tpu/mcmc/integrators.py``).
+
+The chain axis is written out: positions, momenta and gradients are
+``(C, dim)``, the step size ``(C,)``, the preconditioner ``(C, dim)``.
+The momentum rotations go through :func:`mile_tpu_torch.ops.isokinetic.
+isokinetic_momentum`, which launches the hand-written kernel on a CUDA
+tensor and computes its plain version on a CPU tensor; the network
+forward/backward (``logdensity_and_grad``) is the only heavy op.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from mile_tpu_torch.ops.isokinetic import isokinetic_momentum
+
+# Minimal-norm (McLachlan) two-stage coefficient.
+MCLACHLAN_B1 = 0.1931833275037836
+
+
+class IntegratorState(NamedTuple):
+    """Isokinetic dynamics state of a chain batch."""
+
+    position: torch.Tensor         # (C, dim)
+    momentum: torch.Tensor         # (C, dim), unit rows
+    logdensity: torch.Tensor       # (C,)
+    logdensity_grad: torch.Tensor  # (C, dim)
+
+
+def isokinetic_integrator(logdensity_and_grad: Callable,
+                          coefficients: tuple[float, ...] = (MCLACHLAN_B1,)
+                          ) -> Callable:
+    """Build a palindromic isokinetic integrator step.
+
+    ``(b1,)`` gives the two-stage minimal-norm (McLachlan) scheme:
+    v(b1 h), x(h/2), v((1-2 b1) h), x(h/2), v(b1 h). ``()`` gives
+    isokinetic leapfrog: v(h/2), x(h), v(h/2).
+
+    Returns ``step(state, step_size, sqrt_diag_cov) -> (state, kinetic_change)``
+    with per-chain ``step_size`` (C,) and ``sqrt_diag_cov`` None or (C, dim).
+    """
+    if coefficients == ():
+        v_fracs, x_fracs = [0.5, 0.5], [1.0]
+    else:
+        (b1,) = coefficients
+        v_fracs, x_fracs = [b1, 1.0 - 2.0 * b1, b1], [0.5, 0.5]
+
+    def step(state: IntegratorState, step_size: torch.Tensor,
+             sqrt_diag_cov: torch.Tensor | None = None):
+        u, kinetic = isokinetic_momentum(
+            state.momentum, state.logdensity_grad, step_size, sqrt_diag_cov,
+            coef=v_fracs[0])
+        x, logp, grad = state.position, state.logdensity, state.logdensity_grad
+        for xf, vf in zip(x_fracs, v_fracs[1:]):
+            dx = (xf * step_size)[:, None] * u
+            if sqrt_diag_cov is not None:
+                dx = dx * sqrt_diag_cov
+            x = x + dx
+            logp, grad = logdensity_and_grad(x)
+            u, dk = isokinetic_momentum(u, grad, step_size, sqrt_diag_cov,
+                                        coef=vf)
+            kinetic = kinetic + dk
+        return IntegratorState(x, u, logp, grad), kinetic
+
+    return step
+
+
+def isokinetic_mclachlan(logdensity_and_grad):
+    return isokinetic_integrator(logdensity_and_grad, (MCLACHLAN_B1,))
+
+
+def isokinetic_leapfrog(logdensity_and_grad):
+    return isokinetic_integrator(logdensity_and_grad, ())

@@ -1,0 +1,95 @@
+"""Unadjusted Microcanonical Langevin Monte Carlo over a chain batch
+(counterpart of ``mile_tpu/mcmc/mclmc.py``).
+
+One step: an isokinetic McLachlan (or leapfrog) integration step, then a
+partial momentum refresh, with ΔE = ΔK − logp′ + logp. Every chain has its
+own ``L``, step size and preconditioner, held as device tensors, so a step
+makes no host sync. The refresh noise is keyed by the kernel's run seed
+and a host step counter (see :func:`mile_tpu_torch.ops.isokinetic.
+partial_refresh`), or injected for deterministic comparisons.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator, NamedTuple, Optional
+
+import torch
+
+from mile_tpu_torch.mcmc.integrators import (
+    IntegratorState,
+    isokinetic_leapfrog,
+    isokinetic_mclachlan,
+)
+from mile_tpu_torch.ops.isokinetic import partial_refresh
+
+MCLMCState = IntegratorState
+
+
+class MCLMCInfo(NamedTuple):
+    """Per-step sampling statistics, each ``(C,)``."""
+
+    logdensity: torch.Tensor
+    kinetic_change: torch.Tensor
+    energy_change: torch.Tensor
+
+
+def random_unit_momentum(shape, generator: torch.Generator,
+                         device) -> torch.Tensor:
+    """Uniformly random unit rows (drawn on the CPU generator)."""
+    u = torch.randn(shape, generator=generator).to(device)
+    return u / torch.sqrt(torch.sum(u * u, dim=-1, keepdim=True))
+
+
+def init(position: torch.Tensor, logdensity_and_grad: Callable,
+         generator: Optional[torch.Generator] = None,
+         momentum: Optional[torch.Tensor] = None) -> MCLMCState:
+    """Start every chain at ``position`` (C, dim) with a uniformly random
+    unit velocity (or the given ``momentum``)."""
+    logdensity, grad = logdensity_and_grad(position)
+    if momentum is None:
+        momentum = random_unit_momentum(position.shape, generator,
+                                        position.device)
+    return MCLMCState(position, momentum, logdensity, grad)
+
+
+class MCLMCKernel:
+    """``kernel(state, L, step_size, sqrt_diag_cov) -> (state, info)``.
+
+    ``noise``: an optional iterator of ``(C, dim)`` standard normals used
+    for the refreshes in place of the generated ones (tests inject the JAX
+    package's normals through it).
+    """
+
+    def __init__(self, logdensity_and_grad: Callable,
+                 generator: torch.Generator, integrator: str = 'mclachlan',
+                 noise: Optional[Iterator[torch.Tensor]] = None):
+        make = (isokinetic_leapfrog if integrator == 'leapfrog'
+                else isokinetic_mclachlan)
+        self.integrator_step = make(logdensity_and_grad)
+        self.seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+        self.counter = 0
+        self.noise = noise
+
+    def __call__(self, state: MCLMCState, L: torch.Tensor,
+                 step_size: torch.Tensor,
+                 sqrt_diag_cov: Optional[torch.Tensor] = None):
+        new_state, kinetic_change = self.integrator_step(
+            state, step_size, sqrt_diag_cov)
+        z = None if self.noise is None else next(self.noise)
+        momentum = partial_refresh(new_state.momentum, step_size, L,
+                                   self.seed, self.counter, z)
+        self.counter += 1
+        new_state = new_state._replace(momentum=momentum)
+        energy_change = kinetic_change - new_state.logdensity \
+            + state.logdensity
+        return new_state, MCLMCInfo(new_state.logdensity, kinetic_change,
+                                    energy_change)
+
+
+def build_kernel(logdensity_and_grad: Callable, generator: torch.Generator,
+                 integrator: str = 'mclachlan',
+                 noise: Optional[Iterator[torch.Tensor]] = None
+                 ) -> MCLMCKernel:
+    """The MCLMC step for a chain batch. ``integrator``: 'mclachlan' or
+    'mclachlan_pallas' (the same in the port: kernels on CUDA tensors,
+    plain versions on CPU tensors), or 'leapfrog'."""
+    return MCLMCKernel(logdensity_and_grad, generator, integrator, noise)

@@ -1,0 +1,55 @@
+"""Fully connected BNN (counterpart of ``mile_tpu/models/fcn.py``)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mile_tpu_torch.config.models import FCNConfig
+from mile_tpu_torch.models.blocks import FullyConnected, lecun_normal
+from mile_tpu_torch.models.layout import FlatLayout
+
+
+class FCN(nn.Module):
+    """FCN with ``fcn`` scope, the BNN of all UCI experiments.
+
+    Reads a chain-batched flat parameter tensor ``(C, dim)`` in the JAX
+    package's layout. For regression the final layer has 2 outputs:
+    predictive mean and log-σ.
+    """
+
+    scope = 'fcn'
+
+    def __init__(self, config: FCNConfig, in_features: int):
+        super().__init__()
+        self.config = config
+        self.fcn = FullyConnected(
+            in_features, tuple(config.hidden_structure),
+            config.activation.fn, use_bias=config.use_bias)
+        self.layout = FlatLayout({self.scope: self.fcn.param_shapes()})
+
+    @property
+    def dim(self) -> int:
+        return self.layout.dim
+
+    @property
+    def out_features(self) -> int:
+        return self.fcn.hidden_sizes[-1]
+
+    def forward(self, theta: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return self.fcn(theta, x, self.layout, self.scope)
+
+    def activation_floats(self) -> int:
+        """Floats of activations one (sample, observation) pair holds in a
+        forward pass: each layer's output, before and after its activation.
+        The evaluation's chunk planner budgets memory with it."""
+        return 2 * sum(self.fcn.hidden_sizes) + self.fcn.in_features
+
+    def init(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """``n`` fresh members ``(n, dim)``, initialized as flax's Dense:
+        lecun-normal kernels, zero biases."""
+        flat = torch.zeros(n, self.dim)
+        for leaf in self.layout.leaves:
+            if leaf.path.endswith('/kernel'):
+                flat[:, leaf.offset:leaf.offset + leaf.size] = lecun_normal(
+                    (n, leaf.size), leaf.shape[0], generator)
+        return flat

@@ -1,0 +1,88 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``mile_tpu_torch/csrc/`` is compiled at first use with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+placed in ``mile_tpu_torch/build/`` under a name that carries a hash of
+the source and flags (a stale build is never loaded), and bound with
+``ctypes``. Nothing is built or imported while a module is imported: the
+CPU tests import every module and have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / 'csrc'
+BUILD_DIR = _PKG / 'build'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+
+def nvcc_path() -> str:
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    for candidate in (Path(home) / 'bin' / 'nvcc', shutil.which('nvcc')):
+        if candidate and Path(candidate).exists():
+            return str(candidate)
+    raise RuntimeError('nvcc not found (looked in $CUDA_HOME/bin, '
+                       '/usr/local/cuda/bin and PATH); the CUDA kernels '
+                       'can only be built where the CUDA toolkit is')
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (the name hashes source + flags)."""
+    src = CSRC_DIR / f'{name}.cu'
+    digest = hashlib.sha256(src.read_bytes()
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'lib{name}_{digest}.so'
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; the compiler's
+    report (registers, spills) is kept beside it as ``.log``."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
+           str(CSRC_DIR / f'{name}.cu')]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f'nvcc failed building {name}.cu '
+                           f'({proc.returncode}):\n{proc.stderr}')
+    out.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)   # atomic: a concurrent build never loads a stub
+    return out
+
+
+_P, _I32, _I64, _U64, _F32 = (ctypes.c_void_p, ctypes.c_int32,
+                              ctypes.c_int64, ctypes.c_uint64,
+                              ctypes.c_float)
+
+
+@functools.cache
+def isokinetic_library() -> ctypes.CDLL:
+    """The built ``csrc/isokinetic.cu``, with its C signatures declared."""
+    lib = ctypes.CDLL(str(build('isokinetic')))
+    lib.mile_isokinetic_momentum.argtypes = [
+        _P, _P, _P, _I64, _P, _F32, _P, _P, _I32, _I64, _P]
+    lib.mile_isokinetic_momentum.restype = ctypes.c_int
+    lib.mile_partial_refresh.argtypes = [
+        _P, _P, _P, _P, _U64, _U64, _P, _I32, _I64, _P]
+    lib.mile_partial_refresh.restype = ctypes.c_int
+    lib.mile_error_string.argtypes = [ctypes.c_int]
+    lib.mile_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f'{what} failed to launch: CUDA error {code} '
+                           f'({lib.mile_error_string(code).decode()})')

@@ -1,0 +1,72 @@
+"""Parameter / sample persistence in the JAX package's file formats
+(counterpart of ``mile_tpu/train/checkpoint.py``).
+
+- ``params_{i}.npz``: one member, entries ``leaf_{k}`` in JAX leaf order;
+- ``samples/chain_{c}/samples.npy``: a chain's flat (n_kept, dim) draws,
+  readable by ``mile_tpu.train.checkpoint.load_flat_samples``;
+- ``warmup_params.txt``: tuned step sizes and Ls, one line each.
+
+The JAX package pickles its treedef beside these (a JAX object). The port
+writes ``layout.json`` instead: the leaf paths and shapes of the flat
+layout (a deliberate divergence, recorded in ROADMAP.md).
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+
+from mile_tpu_torch.models.layout import FlatLayout, jax_leaves_from_flat
+
+LAYOUT_FILE = 'layout.json'
+
+
+def save_layout(path: str | Path, layout: FlatLayout) -> None:
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / LAYOUT_FILE).write_text(json.dumps(layout.to_json(), indent=1))
+
+
+def save_params(path: str | Path, flat: np.ndarray, layout: FlatLayout,
+                chain_id: int) -> None:
+    """Save one member's flat (dim,) parameters as ``params_{chain}.npz``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    leaves = jax_leaves_from_flat(np.asarray(flat, np.float32), layout)
+    np.savez_compressed(path / f'params_{chain_id}.npz',
+                        **{f'leaf_{i}': leaf for i, leaf in enumerate(leaves)})
+    save_layout(path, layout)
+
+
+def save_chain_samples(path: str | Path, chain_id: int,
+                       flat_samples: np.ndarray) -> None:
+    """Write a chain's flat (n_kept, dim) sample block."""
+    chain_dir = Path(path) / f'chain_{chain_id}'
+    chain_dir.mkdir(parents=True, exist_ok=True)
+    np.save(chain_dir / 'samples.npy', np.asarray(flat_samples))
+
+
+def save_samples(path: str | Path, flat_samples: np.ndarray) -> None:
+    """Save (n_chains, n_kept, dim) samples, one file per chain."""
+    for c in range(flat_samples.shape[0]):
+        save_chain_samples(path, c, flat_samples[c])
+
+
+def load_flat_samples(path: str | Path) -> np.ndarray:
+    """All chains' flat samples -> (n_chains, n_kept, dim)."""
+    chains = sorted(Path(path).glob('chain_*'),
+                    key=lambda p: int(p.name.split('_')[1]))
+    if not chains:
+        raise FileNotFoundError(f'no chain_* dirs under {path}')
+    return np.stack([np.load(c / 'samples.npy') for c in chains])
+
+
+def save_warmup_params(path: str | Path, step_size, L) -> None:
+    """Tuned-parameter file: line 1 = step sizes, line 2 = Ls, comma-joined."""
+    step_size = np.atleast_1d(np.asarray(step_size))
+    L = np.atleast_1d(np.asarray(L))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, 'w') as f:
+        f.write(','.join(str(s) for s in step_size) + '\n')
+        f.write(','.join(str(s) for s in L) + '\n')

@@ -1,0 +1,184 @@
+"""Deep-ensemble warmstart training, one member per future MCMC chain
+(counterpart of ``mile_tpu/train/warmstart.py``).
+
+Members are stacked on a leading axis of one flat ``(M, dim)`` parameter
+tensor, trained by one ``torch.optim`` optimizer: the optimizers of the
+config (AdamW, Adam, SGD) are elementwise, and each member's loss depends
+on its own row only, so one backward pass over the sum of the members'
+losses gives every member its own gradient. Every member draws its own
+batch permutation per epoch. Train metrics are recorded per step, from the
+step's own (pre-update) forward pass; validation metrics per epoch.
+Early stopping is per member (``earlystop_mask`` semantics): a stopped
+member's parameters and optimizer state stay as they were.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mile_tpu_torch.config.data import Task
+from mile_tpu_torch.config.training import WarmstartConfig
+from mile_tpu_torch.inference.metrics import (
+    ClassificationMetrics,
+    Metrics,
+    MetricsStore,
+    RegressionMetrics,
+    gaussian_nlll,
+    squared_error,
+)
+
+logger = logging.getLogger(__name__)
+
+
+# ------------------------------------------------------------ loss/metrics
+def _sigma(lvals):
+    return torch.clamp(torch.exp(lvals[..., 1]), 1e-6, 1e6)
+
+
+def _regr_loss(lvals: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-member mean Gaussian NLL: lvals (M, B, 2), y (M, B) -> (M,)."""
+    return gaussian_nlll(y, lvals[..., 0], _sigma(lvals)).mean(dim=-1)
+
+
+def _class_loss(lvals: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    ce = F.cross_entropy(lvals.flatten(0, -2), y.long().flatten(),
+                         reduction='none')
+    return ce.view(y.shape).mean(dim=-1)
+
+
+def _regr_metrics(lvals, y) -> dict:
+    return {'nlll': _regr_loss(lvals, y),
+            'rmse': torch.sqrt(squared_error(y, lvals[..., 0]).mean(dim=-1))}
+
+
+def _class_metrics(lvals, y) -> dict:
+    return {'cross_entropy': _class_loss(lvals, y),
+            'accuracy': (lvals.argmax(dim=-1) == y.long()).float().mean(-1)}
+
+
+def task_fns(task: Task) -> tuple[Callable, Callable, type]:
+    if task == Task.REGRESSION:
+        return _regr_loss, _regr_metrics, RegressionMetrics
+    return _class_loss, _class_metrics, ClassificationMetrics
+
+
+def earlystop_mask(losses: np.ndarray, patience: int | None) -> np.ndarray:
+    """Per-member stop decision from the validation-loss history
+    ``losses`` (n_members, n_epochs): stop when the last ``patience``
+    losses never improved on the loss ``patience+1`` epochs ago."""
+    n_members, n_epochs = losses.shape
+    if patience is None or n_epochs < patience + 1:
+        return np.zeros(n_members, dtype=bool)
+    reference = losses[:, -(patience + 1)][:, None]
+    recent = losses[:, -patience:]
+    return np.all(recent >= reference, axis=1)
+
+
+# ---------------------------------------------------------------- training
+def member_step(model, flat: torch.Tensor, optimizer, loss_fn, metrics_fn,
+                x_all, y_all, rows: torch.Tensor,
+                stopped: np.ndarray) -> dict:
+    """One optimizer step of every member on its batch ``rows`` (M, B).
+
+    Members flagged in ``stopped`` keep their parameters and optimizer
+    state. Returns the step's per-member metrics (NaN where stopped).
+    """
+    x, y = x_all[rows], y_all[rows]                  # (M, B, F), (M, B)
+    optimizer.zero_grad(set_to_none=True)
+    lvals = model(flat, x)
+    loss_fn(lvals, y).sum().backward()
+    keep = None
+    if stopped.any():
+        keep = torch.as_tensor(stopped, device=flat.device)
+        state = optimizer.state.get(flat, {})
+        saved = [flat.detach().clone()] + [
+            v.clone() for v in state.values()
+            if torch.is_tensor(v) and v.shape == flat.shape]
+    optimizer.step()
+    if keep is not None:
+        current = [flat.data] + [
+            v for v in optimizer.state[flat].values()
+            if torch.is_tensor(v) and v.shape == flat.shape]
+        for new, old in zip(current, saved):
+            new[keep] = old[keep]
+    with torch.no_grad():
+        m = metrics_fn(lvals.detach(), y)
+    if keep is not None:
+        m = {k: torch.where(keep, torch.full_like(v, float('nan')), v)
+             for k, v in m.items()}
+    return m
+
+
+def _to_metrics(cls: type, hist: list[dict], n_members: int) -> Metrics:
+    if not hist:
+        return cls.empty()
+    cols = {k: torch.stack([h[k] for h in hist], dim=1).cpu().numpy()
+            for k in hist[0]}
+    step = np.tile(np.arange(len(hist)), (n_members, 1))
+    return cls(step=step, **cols)
+
+
+def train_ensemble(model, loader, config: WarmstartConfig, task: Task,
+                   n_members: int, generator: torch.Generator,
+                   init: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, MetricsStore]:
+    """Train ``n_members`` networks; returns (flat params (M, dim) on the
+    loader's device, metrics)."""
+    if config.partition_warmstart:
+        from mile_tpu_torch.exceptions import NotYetPortedError
+
+        raise NotYetPortedError('partition warmstart')
+    loss_fn, metrics_fn, metrics_cls = task_fns(task)
+    x_all, y_all = loader.arrays('train')
+    device = x_all.device
+    if init is None:
+        init = model.init(n_members, generator)
+    flat = init.to(device).clone().requires_grad_(True)
+    optimizer = config.optimizer_config.build([flat])
+
+    x_valid, y_valid = loader.arrays('valid')
+    has_valid = x_valid.shape[0] > 0
+    n_train = x_all.shape[0]
+    batch_size = config.batch_size or n_train
+    n_batches = max(1, n_train // batch_size)
+    patience = config.patience if (config.patience and has_valid) else None
+    valid_key = 'nlll' if task == Task.REGRESSION else 'cross_entropy'
+
+    stopped = np.zeros(n_members, dtype=bool)
+    train_hist, valid_hist = [], []
+    epochs_done = 0
+    while epochs_done < config.max_epochs and not stopped.all():
+        # per-member batch permutations for this epoch: (M, n_batches, B)
+        plan = torch.rand(n_members, n_train, generator=generator).argsort(
+            dim=1)[:, :n_batches * batch_size].reshape(
+            n_members, n_batches, batch_size).to(device)
+        for b in range(n_batches):
+            train_hist.append(member_step(
+                model, flat, optimizer, loss_fn, metrics_fn, x_all, y_all,
+                plan[:, b], stopped))
+        if has_valid:
+            with torch.no_grad():
+                valid_hist.append(metrics_fn(model(flat, x_valid), y_valid))
+            if patience:
+                losses = torch.stack([h[valid_key] for h in valid_hist],
+                                     dim=1).cpu().numpy()
+                stopped |= earlystop_mask(losses, patience)
+        epochs_done += 1
+    logger.info('warmstart finished after %d epoch(s)', epochs_done)
+
+    params = flat.detach()
+    x_test, y_test = loader.arrays('test')
+    with torch.no_grad():
+        test = (metrics_cls(step=np.zeros((n_members, 1)), **{
+            k: v.cpu().numpy()[:, None]
+            for k, v in metrics_fn(model(params, x_test), y_test).items()})
+            if x_test.shape[0] > 0 else metrics_cls.empty())
+    store = MetricsStore(
+        train=_to_metrics(metrics_cls, train_hist, n_members),
+        valid=_to_metrics(metrics_cls, valid_hist, n_members),
+        test=test)
+    return params, store

@@ -1,0 +1,162 @@
+"""The port end to end on the CPU: its CLI writes the JAX package's
+artifacts, which the JAX package reads back; its entry points refuse to run
+without a GPU unless asked for the CPU; and it imports nothing of JAX."""
+import ast
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+from _torch_parity import jax_airfoil, one_torch_thread  # noqa: F401
+from jax.flatten_util import ravel_pytree
+
+from mile_tpu.train import checkpoint as jax_ckpt
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / 'mile_tpu_torch'
+
+
+def tiny_config(saving_dir, **sampler) -> dict:
+    with open(ROOT / 'configs/illustrative_airfoil_mclmc.yaml') as f:
+        cfg = yaml.safe_load(f)
+    cfg['saving_dir'] = str(saving_dir)
+    cfg['experiment_name'] = 'tiny'
+    cfg['training']['warmstart'].update(max_epochs=2, batch_size=256)
+    cfg['training']['sampler'].update(
+        dict(n_chains=2, warmup_steps=30, n_samples=24, n_thinning=3),
+        **sampler)
+    return cfg
+
+
+@pytest.fixture(scope='module')
+def cli_run(tmp_path_factory):
+    """``python -m mile_tpu_torch --device cpu`` on a tiny airfoil run."""
+    tmp = tmp_path_factory.mktemp('cli')
+    path = tmp / 'tiny.yaml'
+    path.write_text(yaml.safe_dump(tiny_config(tmp / 'results')))
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'mile_tpu_torch', '-c', str(path),
+         '--device', 'cpu', '--silent'],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return tmp / 'results' / 'tiny'
+
+
+def test_cli_writes_the_artifacts(cli_run):
+    for name in ('config.yaml', 'training.log', 'metrics.pkl',
+                 'warmup_params.txt', 'warmstart/metrics.pkl',
+                 'warmstart/params_0.npz', 'warmstart/params_1.npz',
+                 'warmstart/layout.json', 'samples/layout.json',
+                 'samples/info.pkl', 'samples/chain_0/samples.npy',
+                 'samples/chain_1/samples.npy'):
+        assert (cli_run / name).is_file(), name
+    with open(cli_run / 'metrics.pkl', 'rb') as f:
+        metrics = pickle.load(f)
+    for key in ('lppd', 'rmse', 'de_lppd', 'de_rmse', 'cal_error'):
+        assert np.isfinite(metrics[key]), key
+    with open(cli_run / 'samples/info.pkl', 'rb') as f:
+        info = pickle.load(f)
+    assert info['energy_change'].shape == (2, 8)
+    assert info['step_size'].shape == (2,)
+
+
+def test_jax_package_reads_the_artifacts(cli_run):
+    """``load_flat_samples`` reads the draws, ``load_warmup_params`` the
+    tuned values, and the ``leaf_{k}`` entries of a member unflatten with
+    the JAX treedef to the same flat vector."""
+    samples = jax_ckpt.load_flat_samples(cli_run / 'samples')
+    assert samples.shape == (2, 8, 674) and np.isfinite(samples).all()
+    step_size, L = jax_ckpt.load_warmup_params(cli_run / 'warmup_params.txt')
+    with open(cli_run / 'samples/info.pkl', 'rb') as f:
+        info = pickle.load(f)
+    np.testing.assert_allclose(step_size, info['step_size'], rtol=1e-6)
+    np.testing.assert_allclose(L, info['L'], rtol=1e-6)
+
+    _, _, template, _ = jax_airfoil()
+    treedef = jax.tree.structure(template)
+    with np.load(cli_run / 'warmstart/params_1.npz') as data:
+        leaves = [data[f'leaf_{i}'] for i in range(len(data.files))]
+    tree = jax.tree.unflatten(treedef, leaves)
+    assert jax.tree.map(np.shape, tree) == jax.tree.map(np.shape, template)
+    flat = np.asarray(ravel_pytree(tree)[0])
+    assert flat.shape == (674,) and np.isfinite(flat).all()
+    assert np.abs(flat).max() > 0
+
+
+def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
+    from mile_tpu_torch.cli import main
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    config = Config.from_dict(tiny_config(tmp_path))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        BDETrainer(config)
+    path = tmp_path / 'tiny.yaml'
+    path.write_text(yaml.safe_dump(tiny_config(tmp_path)))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        main(['-c', str(path), '--silent'])
+
+
+@pytest.mark.parametrize('update', [
+    {'training.sampler.name': 'nuts'},
+    {'training.sampler.partition_sampling': True},
+    {'training.sampler.checkpoint_sampling': True},
+    {'training.checkpoint_format': 'orbax'},
+    {'training.warmstart.warmstart_exp_dir': 'elsewhere'},
+])
+def test_features_not_yet_ported_raise(update, tmp_path):
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.exceptions import NotYetPortedError
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    config = Config.from_dict(tiny_config(tmp_path)).replace(**update)
+    with pytest.raises(NotYetPortedError, match='not yet ported'):
+        BDETrainer(config, device='cpu')
+
+
+def test_more_than_one_device_and_reports_raise(tmp_path):
+    from mile_tpu_torch.cli import main
+    from mile_tpu_torch.exceptions import NotYetPortedError
+
+    path = tmp_path / 'tiny.yaml'
+    path.write_text(yaml.safe_dump(tiny_config(tmp_path)))
+    with pytest.raises(NotYetPortedError):
+        main(['-c', str(path), '--device', 'cpu', '--devices', '2'])
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    trainer = BDETrainer(Config.from_dict(tiny_config(tmp_path)), 'cpu')
+    with pytest.raises(NotYetPortedError, match='report'):
+        trainer.train(report=True)
+
+
+def _imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, 'id', None) == '__import__'
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_and_no_mile_tpu():
+    """Read every module of the port (and chip_smoke.py) as source: no
+    import of jax, flax, optax or mile_tpu anywhere, at any depth."""
+    files = sorted(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    assert len(files) > 30
+    banned = ('jax', 'jaxlib', 'flax', 'optax', 'mile_tpu')
+    for path in files:
+        for name in _imports(ast.parse(path.read_text(), str(path))):
+            root = name.split('.')[0]
+            assert root not in banned, f'{path}: imports {name}'
