@@ -5,8 +5,10 @@ The chain axis is written out: positions, momenta and gradients are
 ``(C, dim)``, the step size ``(C,)``, the preconditioner ``(C, dim)``.
 The momentum rotations go through :func:`mile_tpu_torch.ops.isokinetic.
 isokinetic_momentum`, which launches the hand-written kernel on a CUDA
-tensor and computes its plain version on a CPU tensor; the network
-forward/backward (``logdensity_and_grad``) is the only heavy op.
+tensor and computes its plain version on a CPU tensor. The position drift
+that follows a rotation and the sum of ΔK over the step are fused into
+that call, so a McLachlan step is 3 kernel launches and 2
+``logdensity_and_grad`` (the network forward/backward, the only heavy op).
 """
 from __future__ import annotations
 
@@ -47,21 +49,23 @@ def isokinetic_integrator(logdensity_and_grad: Callable,
         (b1,) = coefficients
         v_fracs, x_fracs = [b1, 1.0 - 2.0 * b1, b1], [0.5, 0.5]
 
+    # the drift that follows each rotation (none after the last), fused
+    # into the rotation's kernel, which also sums ΔK in place
+    drifts = [*x_fracs, None]
+
     def step(state: IntegratorState, step_size: torch.Tensor,
              sqrt_diag_cov: torch.Tensor | None = None):
-        u, kinetic = isokinetic_momentum(
-            state.momentum, state.logdensity_grad, step_size, sqrt_diag_cov,
-            coef=v_fracs[0])
-        x, logp, grad = state.position, state.logdensity, state.logdensity_grad
-        for xf, vf in zip(x_fracs, v_fracs[1:]):
-            dx = (xf * step_size)[:, None] * u
-            if sqrt_diag_cov is not None:
-                dx = dx * sqrt_diag_cov
-            x = x + dx
-            logp, grad = logdensity_and_grad(x)
-            u, dk = isokinetic_momentum(u, grad, step_size, sqrt_diag_cov,
-                                        coef=vf)
-            kinetic = kinetic + dk
+        x, u, kinetic = state.position, state.momentum, None
+        logp, grad = state.logdensity, state.logdensity_grad
+        for i, (vf, xf) in enumerate(zip(v_fracs, drifts)):
+            if i:
+                logp, grad = logdensity_and_grad(x)
+            u, kinetic, *moved = isokinetic_momentum(
+                u, grad, step_size, sqrt_diag_cov, coef=vf,
+                x=x if xf else None, x_frac=xf or 0.0,
+                kinetic=kinetic)
+            if moved:
+                (x,) = moved
         return IntegratorState(x, u, logp, grad), kinetic
 
     return step

@@ -2,11 +2,12 @@
 (counterpart of ``mile_tpu/mcmc/mclmc.py``).
 
 One step: an isokinetic McLachlan (or leapfrog) integration step, then a
-partial momentum refresh, with ΔE = ΔK − logp′ + logp. Every chain has its
-own ``L``, step size and preconditioner, held as device tensors, so a step
-makes no host sync. The refresh noise is keyed by the kernel's run seed
-and a host step counter (see :func:`mile_tpu_torch.ops.isokinetic.
-partial_refresh`), or injected for deterministic comparisons.
+partial momentum refresh, which also computes ΔE = ΔK − logp′ + logp.
+Every chain has its own ``L``, step size and preconditioner, held as
+device tensors, so a step makes no host sync. The refresh noise is keyed
+by the kernel's run seed and a step counter held on the device (see
+:func:`mile_tpu_torch.ops.isokinetic.partial_refresh`), or injected for
+deterministic comparisons.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from mile_tpu_torch.mcmc.integrators import (
     isokinetic_leapfrog,
     isokinetic_mclachlan,
 )
-from mile_tpu_torch.ops.isokinetic import partial_refresh
+from mile_tpu_torch.ops.isokinetic import partial_refresh, step_counter
 
 MCLMCState = IntegratorState
 
@@ -52,11 +53,18 @@ def init(position: torch.Tensor, logdensity_and_grad: Callable,
 
 
 class MCLMCKernel:
-    """``kernel(state, L, step_size, sqrt_diag_cov) -> (state, info)``.
+    """``kernel(state, L, step_size, sqrt_diag_cov, energy_sums=None)
+    -> (state, info)``.
 
     ``noise``: an optional iterator of ``(C, dim)`` standard normals used
     for the refreshes in place of the generated ones (tests inject the JAX
-    package's normals through it).
+    package's normals through it). The refresh's step counter is a tensor
+    on the state's device (:func:`~mile_tpu_torch.ops.isokinetic.
+    step_counter`), advanced by the refresh itself (on CUDA by its
+    kernel), so a step makes no host sync and a captured step draws fresh
+    noise on each replay.
+    ``energy_sums``: an optional pair of (C,) tensors into which ΔE and ΔE²
+    are added in place.
     """
 
     def __init__(self, logdensity_and_grad: Callable,
@@ -66,21 +74,23 @@ class MCLMCKernel:
                 else isokinetic_mclachlan)
         self.integrator_step = make(logdensity_and_grad)
         self.seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-        self.counter = 0
+        self.counter = None
         self.noise = noise
 
     def __call__(self, state: MCLMCState, L: torch.Tensor,
                  step_size: torch.Tensor,
-                 sqrt_diag_cov: Optional[torch.Tensor] = None):
+                 sqrt_diag_cov: Optional[torch.Tensor] = None,
+                 energy_sums: Optional[tuple] = None):
+        if self.counter is None:
+            self.counter = step_counter(0, state.position.device)
         new_state, kinetic_change = self.integrator_step(
             state, step_size, sqrt_diag_cov)
         z = None if self.noise is None else next(self.noise)
-        momentum = partial_refresh(new_state.momentum, step_size, L,
-                                   self.seed, self.counter, z)
-        self.counter += 1
+        momentum, energy_change = partial_refresh(
+            new_state.momentum, step_size, L, self.seed, self.counter, z,
+            energy=(kinetic_change, new_state.logdensity, state.logdensity),
+            energy_sums=energy_sums)
         new_state = new_state._replace(momentum=momentum)
-        energy_change = kinetic_change - new_state.logdensity \
-            + state.logdensity
         return new_state, MCLMCInfo(new_state.logdensity, kinetic_change,
                                     energy_change)
 

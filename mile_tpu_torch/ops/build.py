@@ -72,17 +72,20 @@ def isokinetic_library() -> ctypes.CDLL:
     """The built ``csrc/isokinetic.cu``, with its C signatures declared."""
     lib = ctypes.CDLL(str(build('isokinetic')))
     lib.mile_isokinetic_momentum.argtypes = [
-        _P, _P, _P, _I64, _P, _F32, _P, _P, _I32, _I64, _P]
+        _P, _P, _P, _I64, _P, _F32, _P, _F32, _P, _P, _P, _I32, _I32, _I64,
+        _I32, _I32, _I64, _I32, _P]
     lib.mile_isokinetic_momentum.restype = ctypes.c_int
     lib.mile_partial_refresh.argtypes = [
-        _P, _P, _P, _P, _U64, _U64, _P, _I32, _I64, _P]
+        _P, _P, _P, _P, _U64, _U64, _P, _P, _P, _P, _P, _P, _P, _P, _I32,
+        _I64, _I32, _I32, _I64, _I32, _P]
     lib.mile_partial_refresh.restype = ctypes.c_int
     lib.mile_error_string.argtypes = [ctypes.c_int]
     lib.mile_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f'{what} failed to launch: CUDA error {code} '
-                           f'({lib.mile_error_string(code).decode()})')
+def raise_error(code: int, what: str) -> None:
+    """Raise for the CUDA error ``code`` that launching ``what`` returned."""
+    message = isokinetic_library().mile_error_string(code).decode()
+    raise RuntimeError(f'{what} failed to launch: CUDA error {code} '
+                       f'({message})')

@@ -152,10 +152,9 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
                 acc = torch.zeros(n_chains, device=device)
                 acc_sq = torch.zeros(n_chains, device=device)
                 for _ in range(thin):
-                    state, info = kernel(state, params.L, params.step_size,
-                                         params.sqrt_diag_cov)
-                    acc += info.energy_change
-                    acc_sq += info.energy_change * info.energy_change
+                    state, _ = kernel(state, params.L, params.step_size,
+                                      params.sqrt_diag_cov,
+                                      energy_sums=(acc, acc_sq))
                 positions[:, j] = state.position
                 de[:, j] = acc / thin
                 de_sq[:, j] = acc_sq / thin

@@ -9,8 +9,8 @@ from _torch_parity import jax_airfoil, one_torch_thread, t, torch_airfoil  # noq
 
 from mile_tpu.mcmc import mclmc as jax_mclmc
 from mile_tpu_torch.bayes.posterior import value_and_grad
-from mile_tpu_torch.mcmc import mclmc
-from mile_tpu_torch.ops.isokinetic import isokinetic_momentum
+from mile_tpu_torch.mcmc import integrators, mclmc
+from mile_tpu_torch.ops.isokinetic import counter_step, isokinetic_momentum
 
 
 def gaussian(scales=None):
@@ -100,6 +100,58 @@ def test_per_chain_parameters():
     assert new_state.position.shape == (4, 8)
     assert info.energy_change.shape == (4,)
     assert not torch.allclose(new_state.position[0], new_state.position[3])
+
+
+def test_kernel_counter_and_energy_sums():
+    """The kernel's step counter is a tensor on the state's device,
+    advanced once per step by the refresh; ΔE is ΔK − logp′ + logp, and
+    ``energy_sums`` collects ΔE and ΔE² of every step in place."""
+    vg = gaussian()
+    gen = torch.Generator().manual_seed(3)
+    kernel = mclmc.build_kernel(vg, gen)
+    state = mclmc.init(torch.randn(3, 16, generator=gen), vg, gen)
+    eps, L = torch.full((3,), 0.3), torch.full((3,), 2.0)
+    sums = (torch.zeros(3), torch.zeros(3))
+    total, total_sq = torch.zeros(3), torch.zeros(3)
+    for step in range(4):
+        new_state, info = kernel(state, L, eps, energy_sums=sums)
+        assert kernel.counter.device == state.position.device
+        assert counter_step(kernel.counter) == step + 1
+        want = info.kinetic_change - new_state.logdensity + state.logdensity
+        assert torch.equal(info.energy_change, want)
+        total += want
+        total_sq += want * want
+        state = new_state
+    assert torch.equal(sums[0], total) and torch.equal(sums[1], total_sq)
+
+
+@pytest.mark.parametrize('integrator', ['mclachlan', 'leapfrog'])
+def test_fused_drifts_match_separate_updates(integrator):
+    """The integrator's drifts, fused into the rotations, move the chains
+    exactly as separate rotation, drift and ΔK sums do."""
+    vg = gaussian(torch.tensor([0.5, 1.0, 2.0, 4.0] * 4))
+    gen = torch.Generator().manual_seed(4)
+    state = mclmc.init(torch.randn(2, 16, generator=gen), vg, gen)
+    eps = torch.tensor([0.2, 0.4])
+    sdc = torch.rand(2, 16, generator=gen) + 0.5
+    make = (integrators.isokinetic_leapfrog if integrator == 'leapfrog'
+            else integrators.isokinetic_mclachlan)
+    new_state, kinetic = make(vg)(state, eps, sdc)
+    if integrator == 'leapfrog':
+        v_fracs, x_fracs = [0.5, 0.5], [1.0]
+    else:
+        b1 = integrators.MCLACHLAN_B1
+        v_fracs, x_fracs = [b1, 1.0 - 2.0 * b1, b1], [0.5, 0.5]
+    x, (u, want_k) = state.position, isokinetic_momentum(
+        state.momentum, state.logdensity_grad, eps, sdc, coef=v_fracs[0])
+    for xf, vf in zip(x_fracs, v_fracs[1:]):
+        x = x + (xf * eps)[:, None] * u * sdc
+        _, grad = vg(x)
+        u, dk = isokinetic_momentum(u, grad, eps, sdc, coef=vf)
+        want_k = want_k + dk
+    assert torch.equal(new_state.position, x)
+    assert torch.equal(new_state.momentum, u)
+    assert torch.equal(kinetic, want_k)
 
 
 @pytest.mark.parametrize('integrator', ['mclachlan', 'mclachlan_pallas',

@@ -7,6 +7,7 @@ kernels themselves run only on a CUDA device: ``chip_smoke.py`` holds them
 against these plain versions there.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -117,6 +118,132 @@ def test_momentum_zero_gradient_is_identity():
                                         torch.full((3,), 0.1))
     np.testing.assert_allclose(new_u.numpy(), u, atol=1e-6)
     assert np.abs(dk.numpy()).max() < 1e-5
+
+
+def _positions(rng, n_chains, dim):
+    """Positions away from zero, so that x' is held to a relative bound."""
+    sign = rng.choice([-1.0, 1.0], size=(n_chains, dim))
+    return (sign * rng.uniform(0.5, 1.5, (n_chains, dim))).astype(np.float32)
+
+
+@pytest.mark.parametrize('preconditioned', [True, False])
+@pytest.mark.parametrize('n_chains,dim', [(5, 674), (2, 64)])
+def test_momentum_with_fused_drift_matches_reference(n_chains, dim,
+                                                     preconditioned):
+    """K1 with the drift fused in: the JAX rotation followed by the drift
+    of ``mile_tpu/mcmc/integrators.py::_position_update``
+    (x + ε_x · u' · s): u' atol 2e-5, ΔK rtol 2e-4, x' rtol 1e-6."""
+    u, g, sdc, eps = _momentum_inputs(n_chains, dim, seed=9)
+    x = _positions(np.random.default_rng(10), n_chains, dim)
+    if not preconditioned:
+        sdc = np.ones_like(sdc)
+    coef, x_frac = 0.6136333449924328, 0.5
+    ref_u, ref_dk = jax.vmap(isokinetic_momentum_update)(
+        u, g, jnp.float32(coef) * eps, sdc)
+    ref_x = jax.vmap(lambda x, u, e, s: x + e * u * s)(
+        x, ref_u, jnp.float32(x_frac) * eps, sdc)
+    new_u, dk, new_x = ops.isokinetic_momentum(
+        t(u), t(g), t(eps), t(sdc) if preconditioned else None, coef,
+        x=t(x), x_frac=x_frac)
+    np.testing.assert_allclose(new_u.numpy(), np.asarray(ref_u), atol=2e-5)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(ref_dk), rtol=2e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(new_x.numpy(), np.asarray(ref_x), rtol=1e-6)
+
+
+def test_kinetic_accumulates_in_place():
+    """``kinetic=`` adds ΔK into the given tensor and returns it: after
+    three rotations it holds the sum of their three ΔK."""
+    u, g, sdc, eps = _momentum_inputs(4, 674, seed=11)
+    gs = [g, g[::-1].copy(), 2.0 * g]
+    u1, dk1 = ops.isokinetic_momentum(t(u), t(gs[0]), t(eps), t(sdc))
+    u2, dk2 = ops.isokinetic_momentum(u1, t(gs[1]), t(eps), t(sdc))
+    _, dk3 = ops.isokinetic_momentum(u2, t(gs[2]), t(eps), t(sdc))
+    kinetic = dk1.clone()
+    v2, same = ops.isokinetic_momentum(u1, t(gs[1]), t(eps), t(sdc),
+                                       kinetic=kinetic)
+    ops.isokinetic_momentum(v2, t(gs[2]), t(eps), t(sdc), kinetic=kinetic)
+    assert same is kinetic
+    np.testing.assert_array_equal(kinetic.numpy(),
+                                  (dk1 + dk2 + dk3).numpy())
+
+
+@pytest.mark.parametrize('n_chains,dim', [(3, 674), (1, 674)])
+def test_refresh_with_fused_energy_matches_reference(n_chains, dim):
+    """K3 with ΔE fused in, fed the JAX normals: the refresh of
+    ``partially_refresh_momentum`` and ΔE = ΔK − logp′ + logp of
+    ``mile_tpu/mcmc/mclmc.py`` (atol 1e-6), and the running sums of ΔE
+    and ΔE² moved by exactly ΔE and ΔE²."""
+    rng = np.random.default_rng(12)
+    u = unit_rows(rng, n_chains, dim)
+    eps = rng.uniform(0.05, 0.2, n_chains).astype(np.float32)
+    L = rng.uniform(0.5, 3.0, n_chains).astype(np.float32)
+    dk, logp_new, logp, total, total_sq = (
+        rng.normal(size=n_chains).astype(np.float32) * 50.0 for _ in range(5))
+    keys = jax.random.split(jax.random.PRNGKey(13), n_chains)
+    z = jax.vmap(lambda k: jax.random.normal(k, (dim,)))(keys)
+    ref = jax.vmap(partially_refresh_momentum)(u, keys, eps, L)
+    ref_de = jnp.asarray(dk) - jnp.asarray(logp_new) + jnp.asarray(logp)
+    sums = (t(total), t(total_sq))
+    out, de = ops.partial_refresh(t(u), t(eps), t(L), z=t(z),
+                                  energy=(t(dk), t(logp_new), t(logp)),
+                                  energy_sums=sums)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    np.testing.assert_allclose(de.numpy(), np.asarray(ref_de), atol=1e-6)
+    np.testing.assert_allclose(sums[0].numpy(),
+                               np.asarray(jnp.asarray(total) + ref_de),
+                               atol=1e-6)
+    np.testing.assert_allclose(sums[1].numpy(),
+                               np.asarray(jnp.asarray(total_sq)
+                                          + ref_de * ref_de), rtol=1e-6)
+
+
+def test_cpu_refresh_counter_tensor():
+    """A CPU step counter: the call keys its noise by the counter's step
+    (as the integer counter does) and advances it by one step."""
+    u = t(unit_rows(np.random.default_rng(14), 3, 674))
+    eps, L = torch.full((3,), 0.1), torch.ones(3)
+    counter = ops.step_counter(5)
+    assert counter.dtype == torch.int64 and ops.counter_step(counter) == 5
+    a = ops.partial_refresh(u, eps, L, seed=3, counter=counter)
+    assert ops.counter_step(counter) == 6
+    b = ops.partial_refresh(u, eps, L, seed=3, counter=counter)
+    assert ops.counter_step(counter) == 7
+    assert torch.equal(a, ops.partial_refresh(u, eps, L, seed=3,
+                                              counter=ops.step_counter(5)))
+    assert torch.equal(a, ops.partial_refresh(u, eps, L, seed=3, counter=5))
+    assert torch.equal(b, ops.partial_refresh(u, eps, L, seed=3, counter=6))
+    assert not torch.allclose(a, b)
+
+
+def test_refresh_refuses_bad_counter_and_sums():
+    u = t(unit_rows(np.random.default_rng(15), 2, 64))
+    eps, L = torch.full((2,), 0.1), torch.ones(2)
+    with pytest.raises(ValueError, match='counter must be torch.int64'):
+        ops.partial_refresh(u, eps, L, counter=torch.tensor(1.0))
+    with pytest.raises(ValueError, match='energy_sums needs energy'):
+        ops.partial_refresh(u, eps, L, energy_sums=(torch.zeros(2),
+                                                    torch.zeros(2)))
+
+
+@pytest.mark.parametrize('dim', [2, 64, 674, 2048, 8192, 8193, 40000, 65536,
+                                 65537, 300000])
+def test_kernel_route(dim):
+    """The launch shape the wrappers give the kernels: whole warps, at
+    most 512 threads and a portable cluster of 8, every group of 4
+    elements covered, and resident only where the groups fit in
+    registers (4 a thread)."""
+    route = ops.kernel_route(dim)
+    groups = -(-dim // 4)
+    assert route.threads % 32 == 0 and 32 <= route.threads <= 512
+    assert 1 <= route.cluster <= 8
+    assert route.per_cta * route.cluster >= groups
+    assert route.per_cta - 1 < -(-groups // route.cluster)
+    assert route.resident == (route.per_cta <= 4 * route.threads)
+    assert (route.cluster == 1) == (dim <= 8192)
+    assert route.resident == (dim <= 65536)
+    if dim == 674:
+        assert route == (96, 1, 169, True)
 
 
 @pytest.mark.parametrize('n_chains,dim', [(3, 674), (1, 674), (2, 64)])
