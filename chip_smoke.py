@@ -10,9 +10,17 @@ injected noise and the fused ΔE, its Philox statistics, and its device
 step counter replayed from a CUDA graph), drives the airfoil MCLMC
 pipeline (``configs/illustrative_airfoil_mclmc.yaml``) at full width
 through ``BDETrainer`` with only the step counts cut, checks that the
-pipeline went through the kernels, and times the kernels (eagerly and
-replayed from a CUDA graph, at (12, 674), (1, 674) and (2, 300000)), the
-sampler and a profiled step.
+pipeline went through the kernels and streamed its draws to disk through
+the native C++ sample sink, and times the kernels (eagerly and replayed
+from a CUDA graph, at (12, 674), (1, 674) and (2, 300000)), the sampler and
+a profiled step.
+
+The NUTS path (``configs/illustrative_airfoil_nuts.yaml``, full width,
+tree depth 10, step counts cut to ``NUTS_CUT``) runs through
+``BDETrainer`` too, with its tree statistics, rates and a profiled draw;
+one NUTS step on the card is held against the same step on the CPU with
+the same injected draws; and a short HMC run follows. That path runs no
+hand-written kernel (the JAX package's NUTS/HMC is plain XLA).
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
@@ -21,6 +29,7 @@ JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -57,6 +66,33 @@ CUT = {'training.warmstart.max_epochs': 20,
        'training.sampler.warmup_steps': 200,
        'training.sampler.n_samples': 200,
        'training.sampler.n_thinning': 10}
+
+# The NUTS path: the config's 12 chains, FCN [16,16,16,2] and tree depth 10
+# (up to 1023 leapfrog steps a draw); only the step counts are cut, so that
+# at that worst-case depth the phase stays within about 3 minutes
+NUTS_CONFIG = ROOT / 'configs' / 'illustrative_airfoil_nuts.yaml'
+NUTS_RESULTS = ROOT / 'results' / 'chip_smoke_nuts'
+NUTS_CUT = {'training.warmstart.max_epochs': 20,
+            'training.sampler.warmup_steps': 20,
+            'training.sampler.n_samples': 8}
+# One NUTS step on the card against the same step on the CPU, from the
+# card's state with the same draws, at tree depth 5 (31 leapfrog steps),
+# the tuned step sizes, and two chains' step sizes raised 30 and 1000
+# times (a short tree, a divergence): the trees must be the same and the
+# positions (of order 1) within NUTS_STEP_ATOL. At the path's depth 10 the
+# trees agree but 1023 float32 steps amplify the two paths' rounding until
+# the multinomial choice of the proposal differs in some chains.
+NUTS_STEP_DEPTH = 5
+NUTS_STEP_EPS_SCALE = [1.0] * 10 + [30.0, 1000.0]
+NUTS_STEP_ATOL = 1e-4
+# the profiled NUTS draw: the sampling kernel at depth 7 (up to 127 batched
+# leaves, each the same work as at depth 10): on an H100 host the
+# profiler's own post-processing of a depth-10 draw (170,000 kernels)
+# takes about 90 s
+NUTS_PROFILE_DEPTH = 7
+HMC_CUT = {'training.sampler.name': 'hmc',
+           'training.sampler.warmup_steps': 30,
+           'training.sampler.n_samples': 20}
 
 
 def fail(msg: str) -> None:
@@ -417,10 +453,7 @@ class Smoke:
                    f'finite metrics {finite}')
         for k in ('fs_split_rhat', 'fs_ess'):
             print(f'  {k}: {metrics.get(k)}')
-        samples = load_flat_samples(trainer.samples_dir)
-        self.check(samples.shape == (MAIN_SHAPE[0], n_kept, MAIN_SHAPE[1])
-                   and bool(np.isfinite(samples).all()),
-                   f'samples directory holds {samples.shape}, finite')
+        self._sink_check(trainer, n_kept)
         print(f'  tuned step_size {np.round(result.tuned["step_size"], 5)}')
         print(f'  tuned L {np.round(result.tuned["L"], 4)}')
         # the sampling phase of run_mclmc, after the tuner: every step,
@@ -446,6 +479,35 @@ class Smoke:
             time.perf_counter() - t0
         self._agreement(trainer, result)
         self._profile(trainer, result)
+
+    def _sink_check(self, trainer, n_kept: int):
+        """The draws went to disk through the native C++ sink while
+        sampling ran: the library loaded, each chain's file holds its
+        ``n_kept`` rows (``rows_written`` counts rows per chain, as the JAX
+        package's sink does; 12 x n_kept rows in all), and
+        ``load_flat_samples`` reads them back."""
+        import numpy as np
+
+        from mile_tpu_torch.native import native_available
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+
+        sink = trainer.sink
+        n_chains, dim = MAIN_SHAPE
+        rows = sum((trainer.samples_dir / f'chain_{c}' / 'samples.bin')
+                   .stat().st_size for c in range(n_chains)) // (4 * dim)
+        self.check(native_available() and sink is not None and sink.native,
+                   'the native sample sink (g++, ctypes) loaded and took the '
+                   'draws')
+        self.check(sink is not None and sink.rows_written == n_kept
+                   and rows == n_chains * n_kept,
+                   f'sink rows_written {getattr(sink, "rows_written", None)} '
+                   f'per chain (= {n_kept} kept draws), {rows} rows on disk '
+                   f'(= {n_chains} x {n_kept})')
+        samples = load_flat_samples(trainer.samples_dir)
+        self.check(samples.shape == (n_chains, n_kept, dim)
+                   and bool(np.isfinite(samples).all()),
+                   f'load_flat_samples reads {samples.shape} from '
+                   f'samples.bin, finite')
 
     def _sampling_rates(self, trainer, members, first: float,
                         runs: int = 5):
@@ -606,6 +668,41 @@ Step by step: each card step is held against the same step taken on
                    f'{max(units["card_vs_f64"]):.1f}, CPU float32 '
                    f'{max(units["cpu_vs_f64"]):.1f} units away')
 
+    def _profiled(self, fn):
+        """Run ``fn`` under the profiler with the card's clock and power
+        sampled beside it. Returns the wall time (µs), the device's busy
+        time (µs), the kernels as (device µs, launches, name) rows, largest
+        first, and the nvidia-smi lines. ``self.sync_us`` keeps the host's
+        time in reads of device values (waits included)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        card = subprocess.Popen(
+            ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+             '--format=csv,noheader', '-lms', '200'],
+            stdout=subprocess.PIPE, text=True)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+        finally:
+            card.terminate()
+            lines = card.communicate(timeout=60)[0].strip().splitlines()
+        rows, self.sync_us = [], 0.0
+        for e in prof.key_averages():
+            dev = getattr(e, 'self_device_time_total',
+                          getattr(e, 'self_cuda_time_total', 0))
+            if dev > 0 and e.device_type.name == 'CUDA':
+                rows.append((dev, e.count, e.key))
+            if e.key == 'aten::_local_scalar_dense':
+                self.sync_us += e.cpu_time_total
+        rows.sort(reverse=True)
+        return wall_us, sum(r[0] for r in rows), rows, lines
+
     def _profile(self, trainer, result, n_steps: int = 50):
         """Where a step's time goes: device time by kernel over ``n_steps``
         bare MCLMC steps (the step alone, without run_mclmc's accumulation
@@ -614,8 +711,6 @@ Step by step: each card step is held against the same step taken on
         checked; the rest is reported."""
         torch = self.torch
         try:
-            from torch.profiler import ProfilerActivity, profile
-
             from mile_tpu_torch.utils.precision import matmul_precision
 
             start, step, _ = self._kernel(trainer, result, self.dev,
@@ -625,30 +720,15 @@ Step by step: each card step is held against the same step taken on
             with matmul_precision(precision):
                 for _ in range(3):   # warm up
                     state, _ = step(state)
-            card = subprocess.Popen(
-                ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
-                 '--format=csv,noheader', '-lms', '200'],
-                stdout=subprocess.PIPE, text=True)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof, \
-                    matmul_precision(precision):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(n_steps):
-                    state, _ = step(state)
-                torch.cuda.synchronize()
-                wall_us = 1e6 * (time.perf_counter() - t0)
-            card.terminate()
-            self.timings['card_during_profile'] = \
-                card.communicate(timeout=60)[0].strip().splitlines()
-            rows = []
-            for e in prof.key_averages():
-                dev = getattr(e, 'self_device_time_total',
-                              getattr(e, 'self_cuda_time_total', 0))
-                if dev > 0 and e.device_type.name == 'CUDA':
-                    rows.append((dev, e.count, e.key))
-            busy = sum(r[0] for r in rows)
-            rows.sort(reverse=True)
+
+            def steps():
+                nonlocal state
+                with matmul_precision(precision):
+                    for _ in range(n_steps):
+                        state, _ = step(state)
+
+            wall_us, busy, rows, card = self._profiled(steps)
+            self.timings['card_during_profile'] = card
             self.timings['profile'] = {
                 'steps': n_steps, 'wall_ms_per_step': wall_us / n_steps / 1e3,
                 'device_ms_per_step': busy / n_steps / 1e3,
@@ -664,6 +744,256 @@ Step by step: each card step is held against the same step taken on
         self.check(per_step <= MAX_LAUNCHES_PER_STEP,
                    f'{per_step:g} kernel launches per bare MCLMC step '
                    f'(<= {MAX_LAUNCHES_PER_STEP})')
+
+    # -------------------------------------------------------- NUTS path
+    @contextlib.contextmanager
+    def _recording_nuts(self):
+        """Keep every NUTSKernel call's info, by kernel (the window
+        adaptation's kernel first, then the sampler's), for the tree
+        statistics. Measurement only: the calls are unchanged."""
+        from mile_tpu_torch.mcmc import nuts
+
+        kernels = {}
+        call = nuts.NUTSKernel.__call__
+
+        def recorded(kernel, *args):
+            state, info = call(kernel, *args)
+            kernels.setdefault(kernel, []).append(info)
+            return state, info
+
+        nuts.NUTSKernel.__call__ = recorded
+        try:
+            yield kernels
+        finally:
+            nuts.NUTSKernel.__call__ = call
+
+    def _tree_stats(self, kernel, infos, seconds: float) -> dict:
+        """Per draw: tree depth and leapfrog steps per chain, and the
+        batched gradient evaluations (each one full-batch value_and_grad of
+        all chains). The batch takes a leaf while any chain is active, so a
+        draw costs exactly the most steps any chain took."""
+        torch = self.torch
+        depth = torch.stack([i.num_trajectory_expansions
+                             for i in infos]).float().cpu()
+        steps = torch.stack([i.num_integration_steps for i in infos]).cpu()
+        batched = int(steps.max(dim=1).values.sum())
+        n = len(infos)
+        return {'draws': n, 'seconds': seconds,
+                'mean_depth': float(depth.mean()),
+                'max_depth': int(depth.max()),
+                'leapfrog_steps_per_draw': float(steps.float().mean()),
+                'batched_gradient_evals_per_draw': batched / n,
+                'gradient_evals_per_s': batched / seconds,
+                'host_syncs_per_draw': kernel.host_syncs / n}
+
+    def nuts_path(self):
+        """The NUTS path: BDETrainer on the airfoil NUTS config at full
+        width (12 chains, dim 674, all training rows, tree depth 10), with
+        the step counts cut to NUTS_CUT. Checks finite metrics, the draws on
+        disk through the native sink, a mean acceptance in (0, 1] and that
+        no hand-written kernel ran on this path; reports the tree
+        statistics and rates of the adaptation and the sampling."""
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        (config,) = Config.from_file(NUTS_CONFIG)
+        config = config.replace(saving_dir=str(NUTS_RESULTS.parent),
+                                experiment_name=NUTS_RESULTS.name, **NUTS_CUT)
+        scfg = config.training.sampler
+        shutil.rmtree(NUTS_RESULTS, ignore_errors=True)
+        trainer = BDETrainer(config, device=self.dev)
+        self.check(trainer.bayes.dim == MAIN_SHAPE[1]
+                   and scfg.n_chains == MAIN_SHAPE[0]
+                   and scfg.max_num_doublings == 10,
+                   f'NUTS at full width: dim {trainer.bayes.dim}, '
+                   f'{scfg.n_chains} chains, '
+                   f'{trainer.loader.arrays("train")[0].shape[0]} training '
+                   f'rows, max_num_doublings {scfg.max_num_doublings}, '
+                   f'{scfg.warmup_steps} adaptation steps, {scfg.n_samples} '
+                   f'draws')
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        members = trainer.train_warmstart()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with self._recording_nuts() as kernels:
+            result = trainer.start_sampling(members)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        metrics = trainer.evaluate(members, result)
+        t3 = time.perf_counter()
+        launches = (ops.isokinetic_momentum.launches,
+                    ops.partial_refresh.launches)
+        self.check(launches == (0, 0),
+                   f'launches in the NUTS path: K1 {launches[0]}, K3 '
+                   f'{launches[1]} (no hand-written kernel on this path)')
+        finite = {k: float(metrics[k]) for k in
+                  ('lppd', 'rmse', 'de_lppd', 'cal_error', 'nll', 'de_rmse')}
+        self.check(all(math.isfinite(v) for v in finite.values()),
+                   f'NUTS finite metrics {finite}')
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        self.check(trainer.sink is not None and trainer.sink.native
+                   and trainer.sink.rows_written == n_kept,
+                   f'NUTS draws through the native sink: rows_written '
+                   f'{getattr(trainer.sink, "rows_written", None)} per chain')
+        samples = load_flat_samples(trainer.samples_dir)
+        self.check(samples.shape == (MAIN_SHAPE[0], n_kept, MAIN_SHAPE[1])
+                   and bool(np.isfinite(samples).all()),
+                   f'NUTS samples {samples.shape}, finite')
+        acc = float(np.mean(result.info['acceptance_rate']))
+        self.check(0.0 < acc <= 1.0,
+                   f'NUTS mean acceptance {acc:.3f} in (0, 1] (target '
+                   f'{scfg.target_acceptance}); divergent draws '
+                   f'{int(np.sum(result.info["is_divergent"]))}')
+        print(f'  tuned step_size {np.array2string(result.tuned["step_size"], precision=6)}')
+        (warm_k, warm_i), (samp_k, samp_i) = kernels.items()
+        phases = {'warmup': self._tree_stats(warm_k, warm_i,
+                                             result.seconds['warmup']),
+                  'sampling': self._tree_stats(samp_k, samp_i,
+                                               result.seconds['sampling'])}
+        for name, st in phases.items():
+            print(f'  NUTS {name}: {st["draws"]} draws in '
+                  f'{st["seconds"]:.2f} s, mean depth {st["mean_depth"]:.2f} '
+                  f'(max {st["max_depth"]}), '
+                  f'{st["leapfrog_steps_per_draw"]:.1f} leapfrog steps per '
+                  f'chain and draw, {st["batched_gradient_evals_per_draw"]:.1f}'
+                  f' batched gradient evaluations per draw, '
+                  f'{st["gradient_evals_per_s"]:.0f} per s, '
+                  f'{st["host_syncs_per_draw"]:.1f} host syncs per draw')
+        self.timings['nuts'] = {
+            'main_path_s': {'warmstart': t1 - t0, 'warmup_and_sampling':
+                            t2 - t1, 'evaluation': t3 - t2},
+            **phases, 'mean_acceptance': acc,
+            'step_size': result.tuned['step_size'].tolist()}
+        self.nuts_run = (trainer, members, result)
+        self._nuts_agreement(trainer, result)
+        self._nuts_profile(trainer, result)
+
+    def _nuts_agreement(self, trainer, result):
+        """One NUTS step on the card against the same step on the CPU in
+        float32, from the card's final state with the same injected draws
+        (drawn on a CPU generator and moved), at NUTS_STEP_DEPTH: the same
+        tree, chain by chain (depth, steps, turning, divergence), and
+        positions within NUTS_STEP_ATOL."""
+        torch = self.torch
+        from mile_tpu_torch.mcmc import hmc, nuts
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        eps = torch.from_numpy(result.tuned['step_size']) \
+            * torch.tensor(NUTS_STEP_EPS_SCALE)
+        imm = torch.from_numpy(result.tuned['inverse_mass_matrix'])
+        start = result.final_state.position
+        outs = {}
+        for device in (self.dev, torch.device('cpu')):
+            x, y = (torch.from_numpy(a).to(device)
+                    for a in trainer.loader.numpy_arrays('train'))
+            vg = trainer.bayes.logdensity_and_grad_fn(x, y)
+            kernel = nuts.build_kernel(
+                vg, max_depth=NUTS_STEP_DEPTH,
+                draws=hmc.Draws(torch.Generator().manual_seed(13), device))
+            with matmul_precision('float32'):
+                t0 = time.perf_counter()
+                outs[device.type] = kernel(nuts.init(start.to(device), vg),
+                                           eps.to(device), imm.to(device))
+                torch.cuda.synchronize()
+                print(f'  one NUTS step on {device.type}: '
+                      f'{time.perf_counter() - t0:.2f} s')
+        (card_state, card), (cpu_state, cpu) = outs['cuda'], outs['cpu']
+        fields = ('num_trajectory_expansions', 'num_integration_steps',
+                  'is_turning', 'is_divergent')
+        same = {f: bool(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)))
+                for f in fields}
+        dx = (card_state.position.cpu() - cpu_state.position).abs().amax(1)
+        moved = (cpu_state.position - start.cpu()).abs().amax(1)
+        self.timings['nuts_step_check'] = {
+            'depth': card.num_trajectory_expansions.tolist(),
+            'steps': card.num_integration_steps.tolist(),
+            'cpu_steps': cpu.num_integration_steps.tolist(),
+            'max_dx_per_chain': dx.tolist(), 'moved_per_chain':
+            moved.tolist()}
+        self.check(all(same.values()) and float(dx.max()) <= NUTS_STEP_ATOL,
+                   f'one NUTS step (depth {NUTS_STEP_DEPTH}), card vs CPU '
+                   f'from the card\'s state with the same draws: tree '
+                   f'identical {same}, depth '
+                   f'{card.num_trajectory_expansions.tolist()}, steps '
+                   f'{card.num_integration_steps.tolist()}; max|dx| '
+                   f'{float(dx.max()):.2e} (atol {NUTS_STEP_ATOL:g}) while '
+                   f'the chains moved up to {float(moved.max()):.2e}')
+
+    def _nuts_profile(self, trainer, result):
+        """Where a NUTS draw's time goes: one draw at the tuned parameters
+        and NUTS_PROFILE_DEPTH under the profiler (the path has run every
+        operation of it already): wall and device time, the device's busy
+        share, kernels per batched leaf, host syncs and their time."""
+        torch = self.torch
+        from mile_tpu_torch.mcmc import nuts
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        try:
+            x, y = trainer.loader.arrays('train')
+            vg = trainer.bayes.logdensity_and_grad_fn(x, y)
+            kernel = nuts.build_kernel(vg, torch.Generator().manual_seed(17),
+                                       max_depth=NUTS_PROFILE_DEPTH)
+            eps = torch.from_numpy(result.tuned['step_size']).to(self.dev)
+            imm = torch.from_numpy(
+                result.tuned['inverse_mass_matrix']).to(self.dev)
+            state = result.final_state
+            out = {}
+
+            def draw():
+                nonlocal state
+                with matmul_precision('float32'):
+                    state, out['info'] = kernel(state, eps, imm)
+
+            wall_us, busy, rows, card = self._profiled(draw)
+            leaves = int(out['info'].num_integration_steps.max())
+            self.timings['nuts_profile'] = {
+                'max_depth': NUTS_PROFILE_DEPTH, 'wall_ms': wall_us / 1e3, 'device_ms': busy / 1e3,
+                'device_busy_share': busy / wall_us,
+                'batched_leaves': leaves,
+                'host_syncs': kernel.host_syncs,
+                'host_sync_ms': self.sync_us / 1e3,
+                'kernels': sum(r[1] for r in rows),
+                'kernels_per_leaf': sum(r[1] for r in rows) / max(leaves, 1),
+                'card': card,
+                'top': [{'name': k[:60], 'launches': c, 'us': d}
+                        for d, c, k in rows[:8]]}
+            print(f'  NUTS profile {json.dumps(self.timings["nuts_profile"])}')
+        except Exception as exc:
+            print(f'  NUTS profiler unavailable: {exc!r}')
+
+    def hmc_run(self):
+        """A short HMC run on the NUTS path's posterior and warm-start
+        members (run_sampler, config name hmc): finite draws of the right
+        shape and a mean acceptance in (0, 1]."""
+        import numpy as np
+
+        from mile_tpu_torch.train.sampling import run_sampler
+
+        trainer, members, _ = self.nuts_run
+        scfg = trainer.config.replace(**HMC_CUT).training.sampler
+        x, y = trainer.loader.arrays('train')
+        result = run_sampler(trainer.bayes.logdensity_and_grad_fn(x, y), scfg,
+                             self.torch.Generator().manual_seed(19), members)
+        acc = float(np.mean(result.info['acceptance_rate']))
+        self.check(result.samples.shape == (MAIN_SHAPE[0], scfg.n_samples,
+                                            MAIN_SHAPE[1])
+                   and bool(np.isfinite(result.samples).all())
+                   and 0.0 < acc <= 1.0,
+                   f'HMC ({scfg.num_integration_steps} leapfrog steps a '
+                   f'draw): samples {result.samples.shape}, finite, mean '
+                   f'acceptance {acc:.3f} in (0, 1]; adaptation '
+                   f'{result.seconds["warmup"]:.2f} s, {scfg.n_samples} draws '
+                   f'{result.seconds["sampling"]:.2f} s')
+        self.timings['hmc'] = {**result.seconds, 'mean_acceptance': acc,
+                               'step_size': result.tuned['step_size'].tolist()}
 
     # ---------------------------------------------------------- timings
     def _time_ms(self, fn, n: int = 500, reps: int = 5) -> float:
@@ -805,6 +1135,10 @@ def main() -> int:
                     smoke.k3)
         smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim 674',
                     smoke.main_path)
+        if smoke.phase('NUTS path: BDETrainer on airfoil NUTS, 12 chains, '
+                       'dim 674, depth 10', smoke.nuts_path):
+            smoke.phase('HMC: a short run on the same posterior',
+                        smoke.hmc_run)
         smoke.phase('timings at (12, 674), (1, 674) and (2, 300000)',
                     smoke.kernel_timings)
     if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))

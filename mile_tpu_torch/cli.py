@@ -1,6 +1,7 @@
 """Experiment CLI of the port (counterpart of ``mile_tpu/cli.py``).
 
     python -m mile_tpu_torch -c configs/illustrative_airfoil_mclmc.yaml
+    python -m mile_tpu_torch -c configs/illustrative_airfoil_nuts.yaml
     python -m mile_tpu_torch -c configs/debug.yaml --device cpu
 
 Runs on the GPU unless ``--device cpu`` is given; without a CUDA device
@@ -17,8 +18,8 @@ import sys
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog='python -m mile_tpu_torch',
-        description='Train a Bayesian deep ensemble (warmstart + MCLMC) '
-                    'with the PyTorch port.')
+        description='Train a Bayesian deep ensemble (warmstart + MCMC: '
+                    'MCLMC, NUTS or HMC) with the PyTorch port.')
     parser.add_argument('--config', '-c', required=True,
                         help='config file or directory of configs')
     parser.add_argument('--search_tree', '-s', default=None,

@@ -4,7 +4,8 @@ Counterpart of ``mile_tpu/config/training.py``: the same fields and
 validation, so the reference YAMLs (``integrator: mclachlan_pallas``
 included) load unchanged. Optimizers are ``torch.optim`` classes built
 from the optax-style parameter names the YAMLs use, and
-``SamplerConfig.build_kernel`` resolves the port's own MCLMC kernel.
+``SamplerConfig.build_kernel`` resolves the port's own MCLMC, NUTS and HMC
+kernels.
 """
 from __future__ import annotations
 
@@ -150,15 +151,19 @@ class SamplerConfig(BaseConfig):
     integrator: str = 'mclachlan'
 
     def build_kernel(self, logdensity_and_grad, generator: torch.Generator):
-        """Resolve the kernel factory (MCLMC only in the port so far)."""
-        from mile_tpu_torch.mcmc import mclmc
+        """Resolve the kernel factory: the configured sampler's step over a
+        chain batch, drawing its randomness from ``generator``."""
+        from mile_tpu_torch.mcmc import hmc, mclmc, nuts
 
-        if self.name != Sampler.MCLMC:
-            from mile_tpu_torch.exceptions import NotYetPortedError
-
-            raise NotYetPortedError(f'sampler {self.name.value!r}')
-        return mclmc.build_kernel(logdensity_and_grad, generator,
-                                  integrator=self.integrator)
+        if self.name == Sampler.MCLMC:
+            return mclmc.build_kernel(logdensity_and_grad, generator,
+                                      integrator=self.integrator)
+        if self.name == Sampler.NUTS:
+            return nuts.build_kernel(logdensity_and_grad, generator,
+                                     max_depth=self.max_num_doublings)
+        return hmc.build_kernel(
+            logdensity_and_grad, generator,
+            num_integration_steps=self.num_integration_steps)
 
     def __post_init__(self):
         if self.warmup_steps <= 0:

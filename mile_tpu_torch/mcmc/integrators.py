@@ -9,6 +9,9 @@ tensor and computes its plain version on a CPU tensor. The position drift
 that follows a rotation and the sum of ΔK over the step are fused into
 that call, so a McLachlan step is 3 kernel launches and 2
 ``logdensity_and_grad`` (the network forward/backward, the only heavy op).
+
+The Euclidean leapfrog of HMC and NUTS (:func:`velocity_verlet`) is plain
+PyTorch, as its JAX counterpart is plain XLA.
 """
 from __future__ import annotations
 
@@ -77,3 +80,39 @@ def isokinetic_mclachlan(logdensity_and_grad):
 
 def isokinetic_leapfrog(logdensity_and_grad):
     return isokinetic_integrator(logdensity_and_grad, ())
+
+
+# --------------------------------------------------------- euclidean (HMC)
+class EuclideanState(NamedTuple):
+    """Hamiltonian dynamics state of a chain batch."""
+
+    position: torch.Tensor         # (C, dim)
+    momentum: torch.Tensor         # (C, dim)
+    logdensity: torch.Tensor       # (C,)
+    logdensity_grad: torch.Tensor  # (C, dim)
+
+
+def velocity_verlet(logdensity_and_grad: Callable,
+                    inverse_mass_matrix: torch.Tensor) -> Callable:
+    """Standard leapfrog with a diagonal inverse mass matrix ``(C, dim)``.
+
+    Returns ``step(state, step_size) -> state`` with per-chain
+    ``step_size`` (C,), signed for the direction of integration."""
+
+    def step(state: EuclideanState, step_size: torch.Tensor
+             ) -> EuclideanState:
+        half = (0.5 * step_size)[:, None]
+        p = state.momentum + half * state.logdensity_grad
+        q = state.position + step_size[:, None] * inverse_mass_matrix * p
+        logdensity, grad = logdensity_and_grad(q)
+        p = p + half * grad
+        return EuclideanState(q, p, logdensity, grad)
+
+    return step
+
+
+def euclidean_kinetic_energy(momentum: torch.Tensor,
+                             inverse_mass_matrix: torch.Tensor
+                             ) -> torch.Tensor:
+    """``0.5 pᵀ M⁻¹ p`` per chain: (C, dim) -> (C,)."""
+    return 0.5 * torch.sum(momentum * momentum * inverse_mass_matrix, dim=-1)

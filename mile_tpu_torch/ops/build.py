@@ -5,7 +5,9 @@ Each source under ``mile_tpu_torch/csrc/`` is compiled at first use with
 placed in ``mile_tpu_torch/build/`` under a name that carries a hash of
 the source and flags (a stale build is never loaded), and bound with
 ``ctypes``. Nothing is built or imported while a module is imported: the
-CPU tests import every module and have no ``nvcc``.
+CPU tests import every module and have no ``nvcc``. The host-side C++ of
+``mile_tpu_torch/native/`` is built the same way with ``g++``
+(:func:`compile_library`).
 """
 from __future__ import annotations
 
@@ -34,32 +36,37 @@ def nvcc_path() -> str:
                        'can only be built where the CUDA toolkit is')
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (the name hashes source + flags)."""
-    src = CSRC_DIR / f'{name}.cu'
+def library_path(src: Path, flags: list[str]) -> Path:
+    """Where ``src`` builds to (the name hashes source + flags)."""
     digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'lib{name}_{digest}.so'
+                            + ' '.join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'lib{src.stem}_{digest}.so'
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; the compiler's
-    report (registers, spills) is kept beside it as ``.log``."""
-    out = library_path(name)
+def compile_library(src: Path, compiler: str, flags: list[str]) -> Path:
+    """Compile ``src`` into a shared library in ``BUILD_DIR`` unless it
+    exists; the compiler's report is kept beside it as ``.log``. Raises
+    ``RuntimeError`` when the compiler fails."""
+    out = library_path(src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-           str(CSRC_DIR / f'{name}.cu')]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([compiler, *flags, '-o', str(tmp), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed building {name}.cu '
-                           f'({proc.returncode}):\n{proc.stderr}')
+        raise RuntimeError(f'{Path(compiler).name} failed building '
+                           f'{src.name} ({proc.returncode}):\n{proc.stderr}')
     out.with_suffix('.log').write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)   # atomic: a concurrent build never loads a stub
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` with nvcc unless its library exists; the
+    compiler's report (registers, spills) is kept beside it as ``.log``."""
+    return compile_library(CSRC_DIR / f'{name}.cu', nvcc_path(), NVCC_FLAGS)
 
 
 _P, _I32, _I64, _U64, _F32 = (ctypes.c_void_p, ctypes.c_int32,

@@ -2,9 +2,14 @@
 (counterpart of ``mile_tpu/train/checkpoint.py``).
 
 - ``params_{i}.npz``: one member, entries ``leaf_{k}`` in JAX leaf order;
-- ``samples/chain_{c}/samples.npy``: a chain's flat (n_kept, dim) draws,
-  readable by ``mile_tpu.train.checkpoint.load_flat_samples``;
-- ``warmup_params.txt``: tuned step sizes and Ls, one line each.
+- a chain's flat (n_kept, dim) draws, in either of two layouts, both read
+  by :func:`load_flat_samples` here and by ``mile_tpu.train.checkpoint.
+  load_flat_samples``: ``samples/chain_{c}/samples.bin`` + ``samples.meta``,
+  written while sampling runs by the native sink
+  (:mod:`mile_tpu_torch.native`), or ``samples/chain_{c}/samples.npy``,
+  written at the end when the sink is unavailable;
+- ``warmup_params.txt`` (MCLMC only): tuned step sizes and Ls, one line
+  each.
 
 The JAX package pickles its treedef beside these (a JAX object). The port
 writes ``layout.json`` instead: the leaf paths and shapes of the flat
@@ -54,12 +59,21 @@ def save_samples(path: str | Path, flat_samples: np.ndarray) -> None:
 
 
 def load_flat_samples(path: str | Path) -> np.ndarray:
-    """All chains' flat samples -> (n_chains, n_kept, dim)."""
+    """All chains' flat samples -> (n_chains, n_kept, dim), from
+    ``samples.npy`` or ``samples.bin`` + ``samples.meta``."""
     chains = sorted(Path(path).glob('chain_*'),
                     key=lambda p: int(p.name.split('_')[1]))
     if not chains:
         raise FileNotFoundError(f'no chain_* dirs under {path}')
-    return np.stack([np.load(c / 'samples.npy') for c in chains])
+
+    def load_chain(c: Path) -> np.ndarray:
+        if (c / 'samples.npy').exists():
+            return np.load(c / 'samples.npy')
+        meta = json.loads((c / 'samples.meta').read_text())
+        raw = np.fromfile(c / 'samples.bin', dtype=meta['dtype'])
+        return raw.reshape(-1, meta['dim'])
+
+    return np.stack([load_chain(c) for c in chains])
 
 
 def save_warmup_params(path: str | Path, step_size, L) -> None:

@@ -1,10 +1,14 @@
-"""MCLMC sampling runtime: warmup, then thinned posterior draws
-(counterpart of ``mile_tpu/train/sampling.py::run_mclmc``).
+"""Sampling runtime: warmup, then thinned posterior draws (counterpart of
+``mile_tpu/train/sampling.py``: ``run_mclmc`` and the ``run_sampler``
+dispatch; NUTS and HMC are in :mod:`mile_tpu_torch.train.sampling_hmc`).
 
 All chains advance together as one ``(C, dim)`` batch. Draws are kept in
 a device buffer per chunk and copied to the host while the next chunk
 computes (on a CUDA device the copy goes to pinned memory without
 blocking, and is waited for only after the next chunk has been enqueued).
+Each chunk that has arrived on the host goes to ``sample_sink(chunk,
+start)`` when one is given (the native sink writes it to disk on its own
+thread).
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from mile_tpu_torch.config.training import SamplerConfig
+from mile_tpu_torch.config.training import Sampler, SamplerConfig
+from mile_tpu_torch.exceptions import NotYetPortedError
 from mile_tpu_torch.mcmc import mclmc
 from mile_tpu_torch.mcmc.adaptation.mclmc_tuning import (
     TuningConfig,
@@ -94,13 +99,54 @@ class _Egress:
         return {k: v.numpy() for k, v in self.host.items()}
 
 
+class Drain:
+    """Collects the chunks of draws that have reached the host: positions
+    into ``host_chunks``, the per-draw statistics into ``info_chunks``,
+    and each chunk of positions to ``sample_sink(chunk, start)``, only
+    after its copy has been waited for."""
+
+    def __init__(self, sample_sink: Optional[Callable] = None):
+        self.sample_sink = sample_sink
+        self.host_chunks, self.info_chunks = [], []
+        self.pending: Optional[tuple] = None
+
+    def push(self, tensors: dict, start: int) -> None:
+        """Start copying a chunk (``'positions'`` and the per-draw
+        statistics, device tensors) to the host; then drain the chunk before
+        it, whose copy ran while this one computed."""
+        egress = _Egress(tensors)
+        self.flush()
+        self.pending = (egress, start)
+
+    def flush(self) -> None:
+        if self.pending is None:
+            return
+        egress, start = self.pending
+        self.pending = None
+        out = egress.result()
+        positions = out.pop('positions')
+        self.host_chunks.append(positions)
+        self.info_chunks.append(out)
+        if self.sample_sink is not None:
+            self.sample_sink(positions, start)
+
+    def samples(self) -> np.ndarray:
+        return np.concatenate(self.host_chunks, axis=1)
+
+    def info(self) -> dict:
+        return {k: np.concatenate([c[k] for c in self.info_chunks], axis=1)
+                for k in self.info_chunks[0]}
+
+
 def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
               generator: torch.Generator, init_positions: torch.Tensor,
-              max_chunk_bytes: int = 1 << 30) -> SamplingResult:
+              max_chunk_bytes: int = 1 << 30,
+              sample_sink: Optional[Callable] = None) -> SamplingResult:
     """Warmup, then ``n_samples`` kernel steps per chain, keeping every
     ``n_thinning``-th position, with per-draw mean and mean square of ΔE
     over each thin block. The tuner runs under
     ``warmup_matmul_precision``, the draws under ``matmul_precision``.
+    Each chunk of draws on the host goes to ``sample_sink(chunk, start)``.
 
     ``seconds['sampling']`` runs from the end of the tuner (which ends on
     a host read of the tuned ε) to the arrival of the last draws on the
@@ -131,17 +177,9 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
 
     logger.info('> starting MCLMC sampling: %d kept draws x %d chains '
                 '(%d chunks)...', n_kept, n_chains, n_chunks)
-    host_chunks, energy_chunks = [], []
-
-    def drain(pending: Optional[_Egress]):
-        if pending is None:
-            return
-        out = pending.result()
-        host_chunks.append(out.pop('positions'))
-        energy_chunks.append(out)
-
+    drain = Drain(sample_sink)
     device = init_positions.device
-    pending, kept_done = None, 0
+    kept_done = 0
     with matmul_precision(cfg.matmul_precision):
         for _ in range(n_chunks):
             block = min(chunk_kept, n_kept - kept_done)
@@ -158,23 +196,35 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
                 positions[:, j] = state.position
                 de[:, j] = acc / thin
                 de_sq[:, j] = acc_sq / thin
-            egress = _Egress({'positions': positions, 'energy_change': de,
-                              'energy_change_sq': de_sq})
-            drain(pending)   # the previous chunk, while this one computes
-            pending = egress
+            drain.push({'positions': positions, 'energy_change': de,
+                        'energy_change_sq': de_sq}, kept_done)
             kept_done += block
-    drain(pending)
+    drain.flush()
     seconds = {'warmup': t1 - t0, 'sampling': time.perf_counter() - t1}
 
-    samples = np.concatenate(host_chunks, axis=1)
+    samples = drain.samples()
     sqrt_diag_cov = params.sqrt_diag_cov
     if sqrt_diag_cov is None:
         sqrt_diag_cov = torch.ones(n_chains, dim)
     tuned = {k: v.cpu().numpy() for k, v in params._replace(
         sqrt_diag_cov=sqrt_diag_cov)._asdict().items()}
-    info = {k: np.concatenate([c[k] for c in energy_chunks], axis=1)
-            for k in energy_chunks[0]}
+    info = drain.info()
     if warmup_trace is not None:
         info['warmup_trace'] = warmup_trace.cpu().numpy()
     logger.info('> MCLMC sampling completed.')
     return SamplingResult(samples, tuned, info, state, seconds)
+
+
+def run_sampler(logdensity_and_grad: Callable, cfg: SamplerConfig,
+                generator: torch.Generator, init_positions: torch.Tensor,
+                **kwargs) -> SamplingResult:
+    """Dispatch on the configured sampling algorithm."""
+    if cfg.epoch_wise_sampling:
+        raise NotYetPortedError('epoch-wise (mini-batch) sampling')
+    if cfg.name == Sampler.MCLMC:
+        return run_mclmc(logdensity_and_grad, cfg, generator, init_positions,
+                         **kwargs)
+    from mile_tpu_torch.train.sampling_hmc import run_hmc_family
+
+    return run_hmc_family(logdensity_and_grad, cfg, generator,
+                          init_positions, **kwargs)

@@ -1,10 +1,14 @@
 """Experiment orchestrator: warmstart -> sampling -> evaluation
-(counterpart of ``mile_tpu/train/trainer.py::BDETrainer``, on the MCLMC
-path with one device).
+(counterpart of ``mile_tpu/train/trainer.py::BDETrainer``, with MCLMC,
+NUTS or HMC on one device).
+
+Draws stream to disk while sampling runs, through the native sink
+(``samples/chain_{c}/samples.bin``); where it cannot be built the trainer
+writes ``samples.npy`` at the end instead, as the JAX trainer does.
 
 Features of the JAX trainer that the port does not have yet raise
 :class:`~mile_tpu_torch.exceptions.NotYetPortedError` when a config asks
-for them: NUTS/HMC, partition or frozen sampling, mid-chain resume, orbax
+for them: partition or frozen sampling, mid-chain resume, orbax
 checkpoints, per-draw streaming, profiling, warmstart reuse, report
 rendering, and more than one device.
 """
@@ -14,7 +18,6 @@ import logging
 import pickle
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from mile_tpu_torch.bayes import BayesianModel
@@ -22,8 +25,9 @@ from mile_tpu_torch.config import Config, Sampler, Task
 from mile_tpu_torch.data import build_loader
 from mile_tpu_torch.exceptions import NotYetPortedError
 from mile_tpu_torch.inference.evaluation import evaluate_bde, evaluate_de
+from mile_tpu_torch.native import NativeSampleSink, native_available
 from mile_tpu_torch.train import checkpoint as ckpt
-from mile_tpu_torch.train.sampling import SamplingResult, run_mclmc
+from mile_tpu_torch.train.sampling import SamplingResult, run_sampler
 from mile_tpu_torch.train.warmstart import train_ensemble
 from mile_tpu_torch.utils.device import resolve_device
 from mile_tpu_torch.utils.keys import experiment_keys
@@ -38,7 +42,6 @@ def check_supported(config: Config) -> None:
     scfg = config.training.sampler
     wcfg = config.training.warmstart
     unported = [
-        (scfg.name != Sampler.MCLMC, f'the {scfg.name.value} sampler'),
         (scfg.epoch_wise_sampling, 'epoch-wise (mini-batch) sampling'),
         (scfg.partition_sampling or bool(scfg.params_frozen),
          'partition / frozen-parameter sampling'),
@@ -70,6 +73,7 @@ class BDETrainer:
         self.exp_dir: Path = config.setup_dir()
         sampler_cfg = config.training.sampler
         self.n_chains = sampler_cfg.n_chains
+        self.sink: NativeSampleSink | None = None  # of the last sampling
 
         keys = experiment_keys(config.rng)
         self._gen_init, self._gen_train, self._gen_sample = (
@@ -117,18 +121,32 @@ class BDETrainer:
         return params
 
     def start_sampling(self, member_params: torch.Tensor) -> SamplingResult:
-        """Run MCLMC from the ensemble members' weights."""
+        """Run the configured sampler from the ensemble members' weights,
+        persisting the draws chunk by chunk through the native sink (the
+        sink is kept as ``self.sink``)."""
+        scfg = self.config.training.sampler
         x, y = self.loader.arrays('train')
-        result = run_mclmc(self.bayes.logdensity_and_grad_fn(x, y),
-                           self.config.training.sampler, self._gen_sample,
-                           member_params)
-        ckpt.save_samples(self.samples_dir, result.samples)
+        self.sink = None
+        if native_available():
+            self.sink = NativeSampleSink(self.samples_dir, self.n_chains,
+                                         self.bayes.dim)
+        try:
+            result = run_sampler(self.bayes.logdensity_and_grad_fn(x, y),
+                                 scfg, self._gen_sample, member_params,
+                                 sample_sink=self.sink)
+        finally:
+            if self.sink is not None:
+                self.sink.close()   # drain the writer queue; files complete
+        if self.sink is None:
+            ckpt.save_samples(self.samples_dir, result.samples)
         ckpt.save_layout(self.samples_dir, self.model.layout)
         if 'warmup_trace' in result.info:
             ckpt.save_samples(self.exp_dir / 'warmup_samples',
                               result.info.pop('warmup_trace'))
-        ckpt.save_warmup_params(self.exp_dir / 'warmup_params.txt',
-                                result.tuned['step_size'], result.tuned['L'])
+        if scfg.name == Sampler.MCLMC:
+            ckpt.save_warmup_params(self.exp_dir / 'warmup_params.txt',
+                                    result.tuned['step_size'],
+                                    result.tuned['L'])
         with open(self.samples_dir / 'info.pkl', 'wb') as f:
             pickle.dump({**result.info, **result.tuned}, f)
         return result
@@ -144,8 +162,8 @@ class BDETrainer:
         _, metrics = evaluate_bde(
             self.model, torch.from_numpy(result.samples).to(self.device),
             x, y, task, nominal_coverages=nominal, metrics_dict=metrics)
-        metrics['step_size'] = np.asarray(result.tuned['step_size'])
-        metrics['L'] = np.asarray(result.tuned['L'])
+        metrics['step_size'] = result.tuned.get('step_size')
+        metrics['L'] = result.tuned.get('L')
         with open(self.exp_dir / 'metrics.pkl', 'wb') as f:
             pickle.dump(metrics, f)
         return metrics

@@ -1,5 +1,6 @@
-"""The port end to end on the CPU: its CLI writes the JAX package's
-artifacts, which the JAX package reads back; its entry points refuse to run
+"""The port end to end on the CPU: its CLI and trainer write the JAX
+package's artifacts (the draws through the native sink), which the JAX
+package reads back, for MCLMC, NUTS and HMC; its entry points refuse to run
 without a GPU unless asked for the CPU; and it imports nothing of JAX."""
 import ast
 import os
@@ -16,14 +17,17 @@ import yaml
 from _torch_parity import jax_airfoil, one_torch_thread  # noqa: F401
 from jax.flatten_util import ravel_pytree
 
+from mile_tpu.mcmc import hmc as jax_hmc
+from mile_tpu.mcmc import nuts as jax_nuts
 from mile_tpu.train import checkpoint as jax_ckpt
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / 'mile_tpu_torch'
 
 
-def tiny_config(saving_dir, **sampler) -> dict:
-    with open(ROOT / 'configs/illustrative_airfoil_mclmc.yaml') as f:
+def tiny_config(saving_dir, config='illustrative_airfoil_mclmc.yaml',
+                **sampler) -> dict:
+    with open(ROOT / 'configs' / config) as f:
         cfg = yaml.safe_load(f)
     cfg['saving_dir'] = str(saving_dir)
     cfg['experiment_name'] = 'tiny'
@@ -54,8 +58,9 @@ def test_cli_writes_the_artifacts(cli_run):
                  'warmup_params.txt', 'warmstart/metrics.pkl',
                  'warmstart/params_0.npz', 'warmstart/params_1.npz',
                  'warmstart/layout.json', 'samples/layout.json',
-                 'samples/info.pkl', 'samples/chain_0/samples.npy',
-                 'samples/chain_1/samples.npy'):
+                 'samples/info.pkl', 'samples/chain_0/samples.bin',
+                 'samples/chain_0/samples.meta',
+                 'samples/chain_1/samples.bin'):
         assert (cli_run / name).is_file(), name
     with open(cli_run / 'metrics.pkl', 'rb') as f:
         metrics = pickle.load(f)
@@ -90,6 +95,58 @@ def test_jax_package_reads_the_artifacts(cli_run):
     assert np.abs(flat).max() > 0
 
 
+@pytest.fixture(scope='module', params=['nuts', 'hmc'])
+def hmc_family_run(request, tmp_path_factory):
+    """``BDETrainer`` on ``illustrative_airfoil_nuts.yaml`` (and the same
+    config with ``name: hmc``) on the CPU, at full width and tree depth 10,
+    with the step counts cut: 2 chains, 20 adaptation steps, 4 draws."""
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    cfg = tiny_config(tmp_path_factory.mktemp(request.param),
+                      'illustrative_airfoil_nuts.yaml', name=request.param,
+                      n_chains=2, warmup_steps=20, n_samples=4, n_thinning=1)
+    trainer = BDETrainer(Config.from_dict(cfg), device='cpu')
+    # one torch thread, as every test here (the autouse fixture is
+    # function-scoped and does not cover this one)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return request.param, trainer, trainer.train(report=False)
+    finally:
+        torch.set_num_threads(prev)
+
+
+def test_hmc_family_draws_reach_the_jax_package(hmc_family_run):
+    """The draws stream through the native sink into ``samples.bin``, which
+    the JAX package's ``load_flat_samples`` reads; no ``samples.npy``, and
+    no ``warmup_params.txt`` (MCLMC only)."""
+    _, trainer, _ = hmc_family_run
+    samples = jax_ckpt.load_flat_samples(trainer.samples_dir)
+    assert samples.shape == (2, 4, 674) and np.isfinite(samples).all()
+    assert trainer.sink.native and trainer.sink.rows_written == 4
+    assert (trainer.samples_dir / 'chain_1/samples.bin').is_file()
+    assert not list(trainer.samples_dir.rglob('samples.npy'))
+    assert not (trainer.exp_dir / 'warmup_params.txt').exists()
+
+
+def test_hmc_family_info_and_metrics(hmc_family_run):
+    """``info.pkl`` holds the JAX trainer's keys for the sampler (its info
+    fields and the tuned values); the metrics are finite."""
+    name, trainer, metrics = hmc_family_run
+    fields = (jax_nuts.NUTSInfo if name == 'nuts' else jax_hmc.HMCInfo)._fields
+    with open(trainer.samples_dir / 'info.pkl', 'rb') as f:
+        info = pickle.load(f)
+    assert set(info) == set(fields) | {
+        'step_size', 'inverse_mass_matrix', 'bracketed_step_size',
+        'final_buffer_acceptance'}
+    assert info['acceptance_rate'].shape == (2, 4)
+    assert info['inverse_mass_matrix'].shape == (2, 674)
+    for key in ('lppd', 'rmse', 'de_lppd', 'de_rmse', 'cal_error'):
+        assert np.isfinite(metrics[key]), key
+    assert metrics['L'] is None and metrics['step_size'].shape == (2,)
+
+
 def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
     from mile_tpu_torch.cli import main
     from mile_tpu_torch.config import Config
@@ -106,7 +163,7 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize('update', [
-    {'training.sampler.name': 'nuts'},
+    {'training.sampler.stream_samples': True},
     {'training.sampler.partition_sampling': True},
     {'training.sampler.checkpoint_sampling': True},
     {'training.checkpoint_format': 'orbax'},
