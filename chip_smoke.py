@@ -12,15 +12,25 @@ pipeline (``configs/illustrative_airfoil_mclmc.yaml``) at full width
 through ``BDETrainer`` with only the step counts cut, checks that the
 pipeline went through the kernels and streamed its draws to disk through
 the native C++ sample sink, and times the kernels (eagerly and replayed
-from a CUDA graph, at (12, 674), (1, 674) and (2, 300000)), the sampler and
-a profiled step.
+from a CUDA graph), the sampler and a profiled step.
+
+The image path (``configs/additional_tasks/lenet_fmnist.yaml``: LeNet,
+10 chains, dim 61,706, 48,000 training images, likelihood chunks of 8192)
+runs through ``BDETrainer`` on a synthetic FashionMNIST-shaped archive made
+from a seed, with the step counts cut to ``IMAGE_CUT``: K1 and K3 on the
+resident-cluster route, their launch counts, the metrics, the draws on
+disk, one MCLMC step through the kernels against the same step through the
+plain versions on the card, the log-density and gradient on the card
+against the CPU's in float32, phase times, the gradient's time and a
+profiled step.
 
 The NUTS path (``configs/illustrative_airfoil_nuts.yaml``, full width,
 tree depth 10, step counts cut to ``NUTS_CUT``) runs through
 ``BDETrainer`` too, with its tree statistics, rates and a profiled draw;
 one NUTS step on the card is held against the same step on the CPU with
 the same injected draws; and a short HMC run follows. That path runs no
-hand-written kernel (the JAX package's NUTS/HMC is plain XLA).
+hand-written kernel (the JAX package's NUTS/HMC is plain XLA). The kernels
+are timed at (12, 674), (1, 674), (10, 61706) and (2, 300000).
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
@@ -59,13 +69,44 @@ K3_OPS_PER_ELEM = 25 + 7 + 1 + 2 + 2 + 1
 # an MCLMC step of the main path: the drifts, the sum of dK and dE are
 # fused into K1 and K3, 10 launches fewer than the 224 of the unfused step
 MAX_LAUNCHES_PER_STEP = 214
-TIMED_SHAPES = [(12, 674), (1, 674), (2, 300_000)]
+TIMED_SHAPES = [(12, 674), (1, 674), (10, 61_706), (2, 300_000)]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
        'training.sampler.warmup_steps': 200,
        'training.sampler.n_samples': 200,
        'training.sampler.n_thinning': 10}
+
+# The image path: LeNet on a synthetic archive of FashionMNIST's shape
+# (70,000 28x28 grey images in 10 classes, made from IMAGE_SEED) at the
+# config's full width: 10 chains, dim 61,706, datapoint_limit 60,000 and
+# train_split 0.8 (48,000 training images), likelihood chunks of 8192. Cut
+# in memory: the step counts (one warm-start epoch; 50 tuner steps, whose
+# last tenth sets L from an effective sample size; 40 sampling steps kept
+# every 10th, 4 draws a chain), and valid/test splits of 0.1/0.1 where the
+# config has 0.2/0.0, so that the evaluation has test images.
+IMAGE_CONFIG = ROOT / 'configs' / 'additional_tasks' / 'lenet_fmnist.yaml'
+IMAGE_RESULTS = ROOT / 'results' / 'chip_smoke_lenet'
+IMAGE_ARCHIVE = ROOT / 'results' / 'chip_smoke_fmnist.npz'
+IMAGE_SEED = 2024
+IMAGE_SHAPE = (10, 61_706)
+IMAGE_TRAIN = 48_000
+IMAGE_CUT = {'training.warmstart.max_epochs': 1,
+             'training.sampler.warmup_steps': 50,
+             'training.sampler.n_samples': 40,
+             'training.sampler.n_thinning': 10,
+             'data.valid_split': 0.1, 'data.test_split': 0.1}
+# one step through the kernels against the same step through the plain
+# versions, both on the card: positions (entries up to a few units) within
+# atol + rtol |x| of IMAGE_STEP_X_TOL, momenta (unit rows of 61,706,
+# entries of order 4e-3) within IMAGE_STEP_U_ATOL; the card's log-density
+# and gradient on IMAGE_GRAD_ROWS training images against the CPU's in
+# float32: value rtol IMAGE_GRAD_RTOL, gradient atol IMAGE_GRAD_GTOL max|g|
+# (the log-posterior's and, apart, the log-likelihood's)
+IMAGE_STEP_X_TOL = (1e-6, 1e-6)
+IMAGE_STEP_U_ATOL = 2e-6
+IMAGE_GRAD_ROWS = 1024
+IMAGE_GRAD_RTOL, IMAGE_GRAD_GTOL = 1e-5, 1e-4
 
 # The NUTS path: the config's 12 chains, FCN [16,16,16,2] and tree depth 10
 # (up to 1023 leapfrog steps a draw); only the step counts are cut, so that
@@ -116,6 +157,7 @@ class Smoke:
         self.k1_err = 0.0
         self.k3_err = 0.0
         self.launches = {}
+        self.image_launches = {}
         self.timings = {}
 
     # ---------------------------------------------------------- helpers
@@ -165,7 +207,7 @@ class Smoke:
         # (float4 loads), and the two cluster routes: resident in registers
         # (40,000) and streaming (300,000)
         for n_chains, dim in [MAIN_SHAPE, (1, 674), (5, 2048), (2, 40_000),
-                              (2, 300_000)]:
+                              IMAGE_SHAPE, (2, 300_000)]:
             route = ops.kernel_route(dim)
             print(f'  route at dim {dim}: {route}')
             if dim == 300_000:
@@ -259,7 +301,7 @@ class Smoke:
             return (u / u.norm(dim=1, keepdim=True)).to(self.dev)
 
         for n_chains, dim in [MAIN_SHAPE, (6, 674), (1, 674), (2, 40_000),
-                              (2, 300_000)]:
+                              IMAGE_SHAPE, (2, 300_000)]:
             u = unit(n_chains, dim)
             z = torch.randn(n_chains, dim, generator=gen).to(self.dev)
             eps = torch.rand(n_chains, generator=gen).to(self.dev) * 0.2 + 0.05
@@ -745,6 +787,297 @@ Step by step: each card step is held against the same step taken on
                    f'{per_step:g} kernel launches per bare MCLMC step '
                    f'(<= {MAX_LAUNCHES_PER_STEP})')
 
+    # ------------------------------------------------------- image path
+    def _image_archive(self):
+        """A FashionMNIST-shaped archive: 70,000 28x28 uint8 images, labels
+        0-9, each image its class's random template plus noise, so that the
+        warm start learns something."""
+        import numpy as np
+
+        rng = np.random.default_rng(IMAGE_SEED)
+        templates = rng.uniform(0.0, 255.0, size=(10, 28, 28))
+        y = rng.integers(0, 10, 70_000)
+        x = 0.6 * templates[y] + rng.normal(0.0, 40.0, size=(70_000, 28, 28))
+        IMAGE_ARCHIVE.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(IMAGE_ARCHIVE, x=np.clip(x, 0, 255).astype(np.uint8), y=y)
+
+    def image_path(self):
+        """BDETrainer on LeNet at full width (IMAGE_SHAPE, 48,000 training
+        images, likelihood chunks of 8192), step counts cut to IMAGE_CUT:
+        K1 3 times and K3 once per MCLMC step on the resident-cluster
+        route, finite metrics with accuracies above chance, the draws on
+        disk through the native sink; then the step and gradient checks,
+        the gradient's time and a profiled step."""
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        self._image_archive()
+        (config,) = Config.from_file(IMAGE_CONFIG)
+        config = config.replace(saving_dir=str(IMAGE_RESULTS.parent),
+                                experiment_name=IMAGE_RESULTS.name,
+                                **{'data.path': str(IMAGE_ARCHIVE)},
+                                **IMAGE_CUT)
+        scfg = config.training.sampler
+        shutil.rmtree(IMAGE_RESULTS, ignore_errors=True)
+        trainer = BDETrainer(config, device=self.dev)
+        n_chains, dim = IMAGE_SHAPE
+        n_train = trainer.loader.arrays('train')[0].shape[0]
+        route = ops.kernel_route(dim)
+        self.check(trainer.bayes.dim == dim and scfg.n_chains == n_chains
+                   and n_train == IMAGE_TRAIN
+                   and scfg.likelihood_chunk_size == 8192
+                   and route.cluster == 8 and route.resident,
+                   f'LeNet at full width: dim {trainer.bayes.dim}, '
+                   f'{scfg.n_chains} chains, {n_train} training images of '
+                   f'{trainer.loader.input_shape}, likelihood chunks of '
+                   f'{scfg.likelihood_chunk_size}; K1/K3 route {route}')
+
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        members = trainer.train_warmstart()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = trainer.start_sampling(members)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        metrics = trainer.evaluate(members, result)
+        t3 = time.perf_counter()
+        self.image_launches = {
+            'isokinetic_momentum': ops.isokinetic_momentum.launches,
+            'partial_refresh': ops.partial_refresh.launches}
+
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        n_sampled = n_kept * scfg.n_thinning
+        n_steps = scfg.warmup_steps + n_sampled
+        self.check(self.image_launches['isokinetic_momentum'] == 3 * n_steps
+                   and self.image_launches['partial_refresh'] == n_steps,
+                   f'launches in the image path: K1 '
+                   f'{self.image_launches["isokinetic_momentum"]} (3 x '
+                   f'{n_steps} MCLMC steps), K3 '
+                   f'{self.image_launches["partial_refresh"]} (1 x {n_steps})')
+        values = {k: float(metrics[k]) for k in
+                  ('lppd', 'nll', 'acc', 'de_lppd', 'de_acc')}
+        self.check(all(math.isfinite(v) for v in values.values())
+                   and values['acc'] > 0.1 and values['de_acc'] > 0.1,
+                   f'LeNet metrics finite, accuracies above chance (0.1): '
+                   f'{values}')
+        sink = trainer.sink
+        rows = sum((trainer.samples_dir / f'chain_{c}' / 'samples.bin')
+                   .stat().st_size for c in range(n_chains)) // (4 * dim)
+        samples = load_flat_samples(trainer.samples_dir)
+        self.check(sink is not None and sink.native
+                   and sink.rows_written == n_kept
+                   and rows == n_chains * n_kept
+                   and samples.shape == (n_chains, n_kept, dim)
+                   and bool(np.isfinite(samples).all()),
+                   f'LeNet draws through the native sink: rows_written '
+                   f'{getattr(sink, "rows_written", None)} per chain (= '
+                   f'{n_kept}), {rows} rows on disk, load_flat_samples '
+                   f'{samples.shape}, finite')
+        print(f'  tuned step_size {np.round(result.tuned["step_size"], 5)}')
+        print(f'  tuned L {np.round(result.tuned["L"], 4)}')
+        rate = n_chains * n_sampled / result.seconds['sampling']
+        self.timings['image'] = {
+            'phase_s': {'warmstart': t1 - t0,
+                        'tuner': result.seconds['warmup'],
+                        'sampling': result.seconds['sampling'],
+                        'warmup_and_sampling': t2 - t1,
+                        'evaluation': t3 - t2},
+            'mclmc_steps': n_steps, 'sampling_steps': n_sampled,
+            'chain_steps_per_s': rate, 'metrics': values,
+            'peak_device_mib': torch.cuda.max_memory_allocated() / 2 ** 20}
+        print(f'  LeNet phases (s): '
+              f'{json.dumps(self.timings["image"]["phase_s"])}; sampling '
+              f'{n_sampled} steps of {n_chains} chains: {rate:.2f} '
+              f'chain-steps/s')
+        self._image_step_check(trainer, result)
+        self._image_gradient_check(trainer, result)
+        self._image_profile(trainer, result)
+
+    @contextlib.contextmanager
+    def _plain_ops(self):
+        """The MCLMC step with K1 and K3 replaced by their plain versions
+        (the comparison only; the wrappers are put back afterwards)."""
+        from mile_tpu_torch.mcmc import integrators, mclmc
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        def refresh(u, step_size, L, seed, counter, z=None, **kwargs):
+            return ops.partial_refresh_plain(u, step_size, L, z, **kwargs)
+
+        saved = integrators.isokinetic_momentum, mclmc.partial_refresh
+        integrators.isokinetic_momentum = ops.isokinetic_momentum_plain
+        mclmc.partial_refresh = refresh
+        try:
+            yield
+        finally:
+            integrators.isokinetic_momentum, mclmc.partial_refresh = saved
+
+    def _image_step_check(self, trainer, result):
+        """One MCLMC step on the card from the path's final state with the
+        same injected normals, through the kernels and through the plain
+        versions (both under the sampler's matmul precision): positions
+        within IMAGE_STEP_X_TOL, momenta within IMAGE_STEP_U_ATOL, ΔE within
+        64 float32 units of |logp| + |logp'| + |ΔK| (the bound of the
+        airfoil check)."""
+        torch = self.torch
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        z = torch.randn(*IMAGE_SHAPE, generator=torch.Generator()
+                        .manual_seed(23))
+        precision = trainer.config.training.sampler.matmul_precision
+        out = {}
+        for label in ('kernels', 'plain'):
+            start, step, _ = self._kernel(trainer, result, self.dev,
+                                          torch.float32, [z])
+            with contextlib.ExitStack() as stack:
+                if label == 'plain':
+                    stack.enter_context(self._plain_ops())
+                stack.enter_context(matmul_precision(precision))
+                state = start(result.final_state)
+                out[label] = (state, *step(state))
+        (s0, ks, ki), (_, ps, pi) = out['kernels'], out['plain']
+        x_atol, x_rtol = IMAGE_STEP_X_TOL
+        dx = float(((ks.position - ps.position).abs()
+                    / (x_atol + x_rtol * ps.position.abs())).max())
+        du = float((ks.momentum - ps.momentum).abs().max())
+        unit = 2.0 ** -23 * (s0.logdensity.abs() + pi.logdensity.abs()
+                             + pi.kinetic_change.abs())
+        de_units = float(((ki.energy_change - pi.energy_change).abs()
+                          / unit).max())
+        moved = float((ks.position - s0.position).abs().max())
+        self.timings['image_step_check'] = {
+            'x_within_tol': dx, 'max_du': du, 'dE_units': de_units,
+            'moved': moved}
+        self.check(dx <= 1.0 and du <= IMAGE_STEP_U_ATOL
+                   and de_units <= 64.0,
+                   f'one LeNet MCLMC step on the card, kernels vs plain '
+                   f'versions, same state and normals: positions within '
+                   f'{dx:.2f} of atol {x_atol:g} + rtol {x_rtol:g} |x| '
+                   f'(the step moved them up to {moved:.2e}), max|du| '
+                   f'{du:.2e} (atol {IMAGE_STEP_U_ATOL:g}), dE '
+                   f'{de_units:.1f} float32 units (<= 64)')
+
+    def _image_gradient_check(self, trainer, result):
+        """The log-posterior and the log-likelihood alone, with their
+        gradients, at the tuned state on the first IMAGE_GRAD_ROWS training
+        images: on the card under the sampler's matmul precision, on the
+        CPU in float32, and on the card with TF32 allowed in matmuls and
+        convolutions (the witness). At the tuned state the likelihood is
+        small beside the prior, so a TF32 error hides in the posterior's
+        gradient; the likelihood's gradient is held apart, and the witness
+        must exceed its tolerance, which shows the check can see TF32.
+        Also times one full-batch value and gradient on the card."""
+        torch = self.torch
+        from mile_tpu_torch.bayes.posterior import value_and_grad
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        precision = trainer.config.training.sampler.matmul_precision
+        theta = result.final_state.position
+        x, y = trainer.loader.numpy_arrays('train')
+        bayes = trainer.bayes
+
+        @contextlib.contextmanager
+        def tf32():
+            with matmul_precision('tensorfloat32'):
+                torch.backends.cudnn.allow_tf32 = True
+                yield   # the scope puts cuDNN's switch back on exit
+
+        runs = {}
+        for label, device, scope in (
+                ('card', self.dev, lambda: matmul_precision(precision)),
+                ('cpu', torch.device('cpu'),
+                 lambda: matmul_precision('float32')),
+                ('card_tf32', self.dev, tf32)):
+            xs = torch.from_numpy(x[:IMAGE_GRAD_ROWS]).to(device)
+            ys = torch.from_numpy(y[:IMAGE_GRAD_ROWS]).to(device)
+            fns = {'posterior': bayes.logdensity_fn(xs, ys),
+                   'likelihood': lambda t: bayes.log_likelihood(t, xs, ys)}
+            with scope():
+                runs[label] = {k: [a.cpu() for a in value_and_grad(f)(
+                    theta.to(device))] for k, f in fns.items()}
+        errors = {}
+        for label in ('card', 'card_tf32'):
+            for k in ('posterior', 'likelihood'):
+                (v, g), (rv, rg) = runs[label][k], runs['cpu'][k]
+                errors[f'{label}_{k}'] = {
+                    'value_rel': float(((v - rv).abs() / rv.abs()).max()),
+                    'grad_over_max': float((g - rg).abs().max()
+                                           / rg.abs().max())}
+        self.timings['image_gradient_check'] = errors
+        post, lik = errors['card_posterior'], errors['card_likelihood']
+        witness = errors['card_tf32_likelihood']['grad_over_max']
+        self.check(post['value_rel'] <= IMAGE_GRAD_RTOL
+                   and post['grad_over_max'] <= IMAGE_GRAD_GTOL
+                   and lik['grad_over_max'] <= IMAGE_GRAD_GTOL
+                   and witness > IMAGE_GRAD_GTOL,
+                   f'LeNet at the tuned state on {IMAGE_GRAD_ROWS} images, '
+                   f'card vs CPU in float32: log-posterior rel '
+                   f'{post["value_rel"]:.1e} (rtol {IMAGE_GRAD_RTOL:g}), its '
+                   f'gradient {post["grad_over_max"]:.1e} max|g|; '
+                   f'log-likelihood rel {lik["value_rel"]:.1e}, its gradient '
+                   f'{lik["grad_over_max"]:.1e} max|g| (each gradient atol '
+                   f'{IMAGE_GRAD_GTOL:g} max|g|); with TF32 on the card the '
+                   f'likelihood gradient parts by {witness:.1e} max|g| (must '
+                   f'exceed {IMAGE_GRAD_GTOL:g})')
+
+        xs, ys = trainer.loader.arrays('train')
+        vg = trainer.bayes.logdensity_and_grad_fn(xs, ys)
+        times = []
+        with matmul_precision(precision):
+            vg(theta)
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vg(theta)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+        self.timings['image']['gradient_ms'] = times
+        print(f'  full-batch value and gradient, {IMAGE_SHAPE[0]} chains x '
+              f'{xs.shape[0]} images: {statistics.median(times):.1f} ms '
+              f'(median of {times})')
+
+    def _image_profile(self, trainer, result, n_steps: int = 2):
+        """Where a LeNet step's time goes: ``n_steps`` bare MCLMC steps at
+        the tuned parameters under the profiler: wall and device time per
+        step, the device's busy share and the 10 device operations that
+        take the most time."""
+        torch = self.torch
+        try:
+            from mile_tpu_torch.utils.precision import matmul_precision
+
+            start, step, _ = self._kernel(trainer, result, self.dev,
+                                          torch.float32, None)
+            precision = trainer.config.training.sampler.matmul_precision
+            state = start(result.final_state)
+
+            def steps():
+                nonlocal state
+                with matmul_precision(precision):
+                    for _ in range(n_steps):
+                        state, _ = step(state)
+
+            wall_us, busy, rows, card = self._profiled(steps)
+            self.timings['image_profile'] = {
+                'steps': n_steps, 'wall_ms_per_step': wall_us / n_steps / 1e3,
+                'device_ms_per_step': busy / n_steps / 1e3,
+                'device_busy_share': busy / wall_us,
+                'kernels_per_step': sum(r[1] for r in rows) / n_steps,
+                'card': card,
+                'top': [{'name': k[:80], 'launches_per_step': c / n_steps,
+                         'ms_per_step': d / n_steps / 1e3}
+                        for d, c, k in rows[:10]]}
+            print(f'  LeNet profile '
+                  f'{json.dumps(self.timings["image_profile"])}')
+        except Exception as exc:
+            print(f'  LeNet profiler unavailable: {exc!r}')
+
     # -------------------------------------------------------- NUTS path
     @contextlib.contextmanager
     def _recording_nuts(self):
@@ -1135,12 +1468,14 @@ def main() -> int:
                     smoke.k3)
         smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim 674',
                     smoke.main_path)
+        smoke.phase('image path: BDETrainer on LeNet, 10 chains, dim 61,706',
+                    smoke.image_path)
         if smoke.phase('NUTS path: BDETrainer on airfoil NUTS, 12 chains, '
                        'dim 674, depth 10', smoke.nuts_path):
             smoke.phase('HMC: a short run on the same posterior',
                         smoke.hmc_run)
-        smoke.phase('timings at (12, 674), (1, 674) and (2, 300000)',
-                    smoke.kernel_timings)
+        smoke.phase('timings at (12, 674), (1, 674), (10, 61706) and '
+                    '(2, 300000)', smoke.kernel_timings)
     if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))
            or m == 'mile_tpu' for m in sys.modules):
         smoke.failures.append('JAX or the JAX package was imported')
@@ -1161,7 +1496,9 @@ def main() -> int:
             'name': name, 'route': 'cuda',
             'source': f'mile_tpu_torch/csrc/isokinetic.cu ({source_fn})',
             'replaces': replaces,
-            'launches': smoke.launches.get(name, 0),
+            # the airfoil path's and the image path's
+            'launches': smoke.launches.get(name, 0)
+            + smoke.image_launches.get(name, 0),
             'max_abs_err': err,
             'ms': t.get('ms'), 'plain_ms': t.get('plain_ms'),
             'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),

@@ -69,8 +69,9 @@ class Config(BaseConfig):
         fh._mile_experiment_log = True
         root.addHandler(fh)
 
-    def get_model(self, n_features: int):
-        """Build the configured network for ``n_features`` inputs."""
+    def get_model(self, input_shape: int | tuple[int, ...]):
+        """Build the configured network for observations of
+        ``input_shape`` (the loader's ``input_shape``)."""
         from mile_tpu_torch.models import build_model
 
-        return build_model(self.model, n_features)
+        return build_model(self.model, input_shape)

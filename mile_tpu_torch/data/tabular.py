@@ -10,22 +10,23 @@ import numpy as np
 import torch
 
 from mile_tpu_torch.config.data import DataConfig, DatasetType, Task
-from mile_tpu_torch.data.base import Split, resolve_data_path
+from mile_tpu_torch.data.base import (
+    BaseLoader,
+    Split,
+    check_seed,
+    resolve_data_path,
+)
 
 
-class TabularLoader:
+class TabularLoader(BaseLoader):
     def __init__(self, config: DataConfig, rng, target_len: int = 1,
                  device: str | torch.device = 'cpu'):
         if config.data_type != DatasetType.TABULAR:
             raise ValueError(f'TabularLoader needs tabular data, got '
                              f'{config.data_type.value}')
-        if not isinstance(rng, (int, np.integer, np.random.SeedSequence,
-                                np.random.Generator)):
-            raise TypeError(f'loader seed must be an int, a numpy '
-                            f'SeedSequence or Generator, got {type(rng)}')
-        self.config = config
+        check_seed(rng)
+        super().__init__(config, device)
         self.target_len = target_len
-        self.device = torch.device(device)
         self._rng = np.random.default_rng(rng)
         data = self._load(resolve_data_path(config.path))
         if config.normalize:
@@ -70,12 +71,6 @@ class TabularLoader:
         if self.config.task == Task.CLASSIFICATION:
             y = y.astype(np.int64)
         return x, y
-
-    def arrays(self, split: Split) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full (features, labels) tensors of a split, on the loader's device."""
-        x, y = self.numpy_arrays(split)
-        return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
     @property
     def n_features(self) -> int:

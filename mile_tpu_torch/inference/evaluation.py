@@ -4,8 +4,10 @@
 Prediction runs the flat-parameter network over (chain × sample) batches
 of draws, chunked over samples and observations so that transient
 activations fit a byte budget. The JAX package plans the chunks by tracing
-a jaxpr; the port counts the FCN's activations analytically
-(``FCN.activation_floats``). Evaluation runs in exact float32.
+a jaxpr and summing every intermediate of one (sample, observation) pair;
+the port counts the same intermediates analytically (each model's
+``activation_floats``), so that it never plans a larger chunk than the JAX
+package for the same budget. Evaluation runs in exact float32.
 """
 from __future__ import annotations
 
@@ -34,7 +36,10 @@ def plan_eval_chunks(model, n_obs: int, n_samples: int,
     ``memory_budget_bytes``: the observation axis shrinks first, the sample
     axis only if a single observation still exceeds the budget."""
     s_chunk = max(1, min(sample_batch, n_samples))
-    unit = 4 * model.activation_floats()   # float32 bytes per (sample, obs)
+    # float32 bytes per (sample, obs): the activations, and the parameter
+    # vector split into its leaves and their kernels reshaped (at most 2 dim
+    # floats), which the JAX package's traced count charges to every pair
+    unit = 4 * (model.activation_floats() + 2 * model.dim)
     obs_chunk = int(memory_budget_bytes // (s_chunk * unit))
     if obs_chunk < 1:
         s_chunk = max(1, int(memory_budget_bytes // unit))
@@ -211,8 +216,7 @@ def evaluate_de(model, members: torch.Tensor, x: torch.Tensor,
     """Deep-ensemble metrics of the flat members (M, dim)."""
     metrics_dict = dict(metrics_dict or {})
     generator = _eval_generator(generator)
-    with torch.no_grad(), matmul_precision('float32'):
-        preds = model(members, x)                       # (M, N, out)
+    preds = predict_from_flat(model, members, x)       # (M, N, out)
 
     pw = M.pointwise_lppd(preds[:, None], y, task)     # members as chains
     metrics_dict['de_lppd'] = float(M.lppd(pw))

@@ -1,7 +1,9 @@
-"""Models (counterpart of ``mile_tpu.models``; the FCN so far)."""
+"""Models (counterpart of ``mile_tpu.models``; the FCN and the CNNs so
+far)."""
 from __future__ import annotations
 
 from mile_tpu_torch.config.models import ModelConfig
+from mile_tpu_torch.models.cnn import LeNet, LeNetti  # noqa: F401
 from mile_tpu_torch.models.fcn import FCN  # noqa: F401
 from mile_tpu_torch.models.layout import (  # noqa: F401
     FlatLayout,
@@ -9,11 +11,22 @@ from mile_tpu_torch.models.layout import (  # noqa: F401
     jax_leaves_from_flat,
 )
 
+MODEL_REGISTRY = {'FCN': FCN, 'LeNet': LeNet, 'LeNetti': LeNetti}
 
-def build_model(config: ModelConfig, in_features: int) -> FCN:
-    """The network named by ``config.model``, for ``in_features`` inputs."""
-    if config.model != 'FCN':
+
+def build_model(config: ModelConfig, input_shape: int | tuple[int, ...]):
+    """The network named by ``config.model`` for observations of
+    ``input_shape``: ``(F,)`` (or the int ``F``) for the FCN, ``(C, H, W)``
+    for the CNNs."""
+    if config.model not in MODEL_REGISTRY:
         from mile_tpu_torch.exceptions import NotYetPortedError
 
         raise NotYetPortedError(f'the {config.model} model')
-    return FCN(config, in_features)
+    if isinstance(input_shape, int):
+        input_shape = (input_shape,)
+    if config.model == 'FCN':
+        if len(input_shape) != 1:
+            raise ValueError(f'FCN needs flat features, got input shape '
+                             f'{tuple(input_shape)}')
+        return FCN(config, input_shape[0])
+    return MODEL_REGISTRY[config.model](config, tuple(input_shape))

@@ -6,6 +6,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mile_tpu_torch.models.layout import FlatLayout
@@ -24,6 +25,57 @@ def lecun_normal(shape: tuple[int, ...], fan_in: int,
                                     dtype=torch.float64)
     z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
     return (z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).float()
+
+
+def init_flat(layout: FlatLayout, n: int,
+              generator: torch.Generator) -> torch.Tensor:
+    """``n`` fresh members ``(n, dim)``, initialized as Flax's Dense and
+    Conv: lecun-normal kernels, zero biases. A kernel's fan-in is the
+    product of all its axes but the last: ``in`` for a Dense kernel
+    ``(in, out)``, ``kh * kw * in`` for a Conv kernel
+    ``(kh, kw, in, out)``."""
+    flat = torch.zeros(n, layout.dim)
+    for leaf in layout.leaves:
+        if leaf.path.endswith('/kernel'):
+            flat[:, leaf.offset:leaf.offset + leaf.size] = lecun_normal(
+                (n, leaf.size), math.prod(leaf.shape[:-1]), generator)
+    return flat
+
+
+def dense(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
+          name: str, use_bias: bool = True) -> torch.Tensor:
+    """The Dense layer ``name`` of every chain: ``h`` (C, N, in) ->
+    (C, N, out). A Flax Dense kernel is ``(in, out)``, as ``bmm`` wants."""
+    n_chains = theta.shape[0]
+    k = layout[f'{name}/kernel']
+    w = theta[:, k.offset:k.offset + k.size].view(n_chains, *k.shape)
+    if not use_bias:
+        return torch.bmm(h, w)
+    b = layout[f'{name}/bias']
+    return torch.baddbmm(theta[:, b.offset:b.offset + b.size].unsqueeze(1),
+                         h, w)
+
+
+def conv2d(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
+           name: str, padding: int, shared: bool) -> torch.Tensor:
+    """The Conv layer ``name`` of every chain in one ``conv2d``, with the
+    chain axis folded into the channels (chain-major): ``h`` is
+    ``(N, C * in, H, W)``, or ``(N, in, H, W)`` shared by every chain
+    (``shared``); the result is ``(N, C * out, H', W')``.
+
+    Kernel layout: a Flax Conv kernel is ``(kh, kw, in, out)``; torch wants
+    ``(out, in, kh, kw)``, here ``(C * out, in, kh, kw)``. A shared input
+    meets every chain's filters in one dense convolution; chain-major input
+    channels meet their own chain's filters with ``groups=C``."""
+    n_chains = theta.shape[0]
+    k, b = layout[f'{name}/kernel'], layout[f'{name}/bias']
+    kh, kw, c_in, c_out = k.shape
+    w = theta[:, k.offset:k.offset + k.size].view(
+        n_chains, kh, kw, c_in, c_out).permute(0, 4, 3, 1, 2).reshape(
+        n_chains * c_out, c_in, kh, kw)
+    bias = theta[:, b.offset:b.offset + b.size].reshape(-1)
+    return F.conv2d(h, w, bias, padding=padding,
+                    groups=1 if shared else n_chains)
 
 
 class FullyConnected(nn.Module):
@@ -65,14 +117,7 @@ class FullyConnected(nn.Module):
         h = x if x.dim() == 3 else x.unsqueeze(0).expand(n_chains, -1, -1)
         last = len(self.layer_names) - 1
         for i, name in enumerate(self.layer_names):
-            k = layout[f'{scope}/{name}/kernel']
-            w = theta[:, k.offset:k.offset + k.size].view(n_chains, *k.shape)
-            if self.use_bias:
-                b = layout[f'{scope}/{name}/bias']
-                bias = theta[:, b.offset:b.offset + b.size].unsqueeze(1)
-                h = torch.baddbmm(bias, h, w)
-            else:
-                h = torch.bmm(h, w)
+            h = dense(theta, h, layout, f'{scope}/{name}', self.use_bias)
             if i < last:
                 h = self.activation(h)
             elif self.last_layer_activation is not None:

@@ -5,7 +5,7 @@ import torch
 from torch import nn
 
 from mile_tpu_torch.config.models import FCNConfig
-from mile_tpu_torch.models.blocks import FullyConnected, lecun_normal
+from mile_tpu_torch.models.blocks import FullyConnected, init_flat
 from mile_tpu_torch.models.layout import FlatLayout
 
 
@@ -39,17 +39,15 @@ class FCN(nn.Module):
         return self.fcn(theta, x, self.layout, self.scope)
 
     def activation_floats(self) -> int:
-        """Floats of activations one (sample, observation) pair holds in a
-        forward pass: each layer's output, before and after its activation.
-        The evaluation's chunk planner budgets memory with it."""
-        return 2 * sum(self.fcn.hidden_sizes) + self.fcn.in_features
+        """Floats of the intermediates of one (sample, observation) pair's
+        forward pass, op by op before any fusion, as the JAX package's
+        traced plan counts them: each Dense layer's product, broadcast bias
+        and sum, and its activation. The evaluation's chunk planner budgets
+        memory with it."""
+        per_layer = 3 if self.fcn.use_bias else 1
+        return (per_layer + 1) * sum(self.fcn.hidden_sizes) \
+            - self.out_features
 
     def init(self, n: int, generator: torch.Generator) -> torch.Tensor:
-        """``n`` fresh members ``(n, dim)``, initialized as flax's Dense:
-        lecun-normal kernels, zero biases."""
-        flat = torch.zeros(n, self.dim)
-        for leaf in self.layout.leaves:
-            if leaf.path.endswith('/kernel'):
-                flat[:, leaf.offset:leaf.offset + leaf.size] = lecun_normal(
-                    (n, leaf.size), leaf.shape[0], generator)
-        return flat
+        """``n`` fresh members ``(n, dim)``, initialized as flax's Dense."""
+        return init_flat(self.layout, n, generator)

@@ -80,8 +80,9 @@ class BDETrainer:
             keys.init, keys.train, keys.sample)
         self.loader = build_loader(config.data, keys.loader, self.device,
                                    target_len=config.data.target_len)
-        self.model = config.get_model(self.loader.n_features)
+        self.model = config.get_model(self.loader.input_shape)
         if config.data.task == Task.CLASSIFICATION:
+            # out-of-range labels would give NaN log-likelihoods
             n_classes = int(self.loader.numpy_arrays('train')[1].max()) + 1
             if n_classes > self.model.out_features:
                 raise ValueError(
@@ -153,8 +154,18 @@ class BDETrainer:
 
     def evaluate(self, member_params: torch.Tensor,
                  result: SamplingResult) -> dict:
-        """Posterior-predictive metrics on the test split -> metrics.pkl."""
+        """Posterior-predictive metrics on the test split -> metrics.pkl.
+
+        With an empty test split (``test_split: 0.0``) it raises, after the
+        warm start and the draws are on disk, as the JAX trainer's
+        evaluation does (there the empty prediction fails inside the
+        network); here the error names the cause."""
         x, y = self.loader.arrays('test')
+        if x.shape[0] == 0:
+            raise ValueError(
+                f'the test split is empty (data.test_split: '
+                f'{self.config.data.test_split}); evaluation needs test '
+                f'data. The warm start and the draws are in {self.exp_dir}')
         task = self.config.data.task
         nominal = NOMINAL_COVERAGES if task == Task.REGRESSION else None
         _, metrics = evaluate_de(self.model, member_params, x, y, task,

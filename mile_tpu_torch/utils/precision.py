@@ -11,6 +11,13 @@ same config values onto ``torch.set_float32_matmul_precision``:
 
 cuDNN's TF32 switch (on by default, for convolutions) is set off inside
 every scope, so a float32 reference stays float32 throughout.
+
+The rule for every phase: each runs inside a scope (the warm start and the
+evaluation in ``'float32'``, the tuner in ``warmup_matmul_precision``, the
+draws in ``matmul_precision``), so convolutions are float32 in every phase
+and matmuls are float32 unless the sampler's config asks for TF32. No
+work of the port runs under PyTorch's process-wide defaults, where cuDNN
+would take TF32 for the convolutions while matmuls stay float32.
 """
 from __future__ import annotations
 
