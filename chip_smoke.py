@@ -24,13 +24,21 @@ plain versions on the card, the log-density and gradient on the card
 against the CPU's in float32, phase times, the gradient's time and a
 profiled step.
 
+The text path (``configs/additional_tasks/sequential_mod.yaml``: the
+IMDB-width AttentionClassifier, 8 chains, dim 65,248, 35,000 training
+sequences of 70 tokens, likelihood chunks of 4096) runs the same way on a
+synthetic IMDB-sized corpus made from a seed and tokenized by characters,
+with the step counts cut to ``TEXT_CUT``; K1 and K3 on the resident-cluster
+route, and a batch with pads and an all-pad sequence held card against
+CPU.
+
 The NUTS path (``configs/illustrative_airfoil_nuts.yaml``, full width,
 tree depth 10, step counts cut to ``NUTS_CUT``) runs through
 ``BDETrainer`` too, with its tree statistics, rates and a profiled draw;
 one NUTS step on the card is held against the same step on the CPU with
 the same injected draws; and a short HMC run follows. That path runs no
 hand-written kernel (the JAX package's NUTS/HMC is plain XLA). The kernels
-are timed at (12, 674), (1, 674), (10, 61706) and (2, 300000).
+are timed at each of ``TIMED_SHAPES``.
 
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
@@ -69,7 +77,8 @@ K3_OPS_PER_ELEM = 25 + 7 + 1 + 2 + 2 + 1
 # an MCLMC step of the main path: the drifts, the sum of dK and dE are
 # fused into K1 and K3, 10 launches fewer than the 224 of the unfused step
 MAX_LAUNCHES_PER_STEP = 214
-TIMED_SHAPES = [(12, 674), (1, 674), (10, 61_706), (2, 300_000)]
+TIMED_SHAPES = [(12, 674), (1, 674), (10, 61_706), (8, 65_248),
+                (2, 300_000)]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
@@ -96,17 +105,59 @@ IMAGE_CUT = {'training.warmstart.max_epochs': 1,
              'training.sampler.n_samples': 40,
              'training.sampler.n_thinning': 10,
              'data.valid_split': 0.1, 'data.test_split': 0.1}
-# one step through the kernels against the same step through the plain
-# versions, both on the card: positions (entries up to a few units) within
-# atol + rtol |x| of IMAGE_STEP_X_TOL, momenta (unit rows of 61,706,
-# entries of order 4e-3) within IMAGE_STEP_U_ATOL; the card's log-density
-# and gradient on IMAGE_GRAD_ROWS training images against the CPU's in
-# float32: value rtol IMAGE_GRAD_RTOL, gradient atol IMAGE_GRAD_GTOL max|g|
-# (the log-posterior's and, apart, the log-likelihood's)
-IMAGE_STEP_X_TOL = (1e-6, 1e-6)
-IMAGE_STEP_U_ATOL = 2e-6
-IMAGE_GRAD_ROWS = 1024
-IMAGE_GRAD_RTOL, IMAGE_GRAD_GTOL = 1e-5, 1e-4
+# The image and text paths' checks. One step through the kernels against
+# the same step through the plain versions, both on the card: positions
+# (entries up to a few units) within atol + rtol |x| of STEP_X_TOL,
+# momenta (unit rows of about 60,000, entries of order 4e-3) within
+# STEP_U_ATOL; the card's log-density and gradient on GRAD_ROWS training
+# observations against the CPU's in float32: value rtol GRAD_RTOL,
+# gradient atol GRAD_GTOL max|g| (the log-posterior's and, apart, the
+# log-likelihood's)
+STEP_X_TOL = (1e-6, 1e-6)
+STEP_U_ATOL = 2e-6
+GRAD_ROWS = 1024
+GRAD_RTOL, GRAD_GTOL = 1e-5, 1e-4
+
+# The text path: configs/additional_tasks/sequential_mod.yaml at full width
+# (AttentionClassifier, vocabulary 1,000, context 70, emb 48, 8 heads, qkv
+# 64, projection [32], 2 classes: dim 65,248; 8 chains; Normal(0, 0.2)
+# prior; AdamW warm start at batch 256; datapoint_limit 50,000 split
+# 0.7/0.1/0.2). Cut in memory (TEXT_CUT): the data (the config's Hugging
+# Face imdb corpus is not in the repository: a synthetic corpus of IMDB's
+# size written to results/, made from TEXT_SEED), the tokenizer (single_char
+# with context_len 70: custom_bpe needs the `tokenizers` package, and the
+# config's `parameters: {}` would pad to the loader's default 64), the
+# likelihood chunks (the config sets none; unchunked, the attention weights
+# alone, 8 x 70 x 70 floats per chain and sequence, take 44 GB a tensor),
+# and the step counts (one warm-start epoch of 200; 30 tuner steps of
+# 50,000; 20 sampling steps thinned by 5, of 10,000 by 100: 4 draws a
+# chain; an MCLMC step takes about 2.6 s, 50 and 40 steps took 4 minutes).
+TEXT_CONFIG = ROOT / 'configs' / 'additional_tasks' / 'sequential_mod.yaml'
+TEXT_RESULTS = ROOT / 'results' / 'chip_smoke_text'
+TEXT_CORPUS = ROOT / 'results' / 'chip_smoke_imdb.csv'
+TEXT_SEED = 2025
+TEXT_SHAPE = (8, 65_248)
+TEXT_TRAIN = 35_000
+TEXT_CHARS = 999          # + PAD: the model's vocabulary of 1,000
+# each character comes from its class's own Zipf ranking with this
+# probability, else from a ranking both classes share: a Bayes classifier
+# of the first 70 characters is right about 88 % of the time (IMDB's
+# attention classifiers reach about that), so the model's likelihood is
+# not saturated (at accuracy 1 its float32 gradient carries 1 - p of p
+# near 1, about 1e-4 relative noise, as a first corpus of disjoint
+# classes showed)
+TEXT_CLASS_MIX = 0.05
+TEXT_CUT = {'data.source': 'local',
+            'training.tokenizer.name': 'single_char',
+            'training.tokenizer.parameters': {'context_len': 70},
+            'training.sampler.likelihood_chunk_size': 4096,
+            'training.warmstart.max_epochs': 1,
+            'training.sampler.warmup_steps': 30,
+            'training.sampler.n_samples': 20,
+            'training.sampler.n_thinning': 5}
+# a batch of training sequences with pads, and one all pads: the card's
+# forward against the CPU's in float32, within TEXT_PAD_TOL
+TEXT_PAD_TOL = 1e-5
 
 # The NUTS path: the config's 12 chains, FCN [16,16,16,2] and tree depth 10
 # (up to 1023 leapfrog steps a draw); only the step counts are cut, so that
@@ -157,7 +208,7 @@ class Smoke:
         self.k1_err = 0.0
         self.k3_err = 0.0
         self.launches = {}
-        self.image_launches = {}
+        self.path_launches = {}     # the image and text paths', by path
         self.timings = {}
 
     # ---------------------------------------------------------- helpers
@@ -207,7 +258,7 @@ class Smoke:
         # (float4 loads), and the two cluster routes: resident in registers
         # (40,000) and streaming (300,000)
         for n_chains, dim in [MAIN_SHAPE, (1, 674), (5, 2048), (2, 40_000),
-                              IMAGE_SHAPE, (2, 300_000)]:
+                              IMAGE_SHAPE, TEXT_SHAPE, (2, 300_000)]:
             route = ops.kernel_route(dim)
             print(f'  route at dim {dim}: {route}')
             if dim == 300_000:
@@ -301,7 +352,7 @@ class Smoke:
             return (u / u.norm(dim=1, keepdim=True)).to(self.dev)
 
         for n_chains, dim in [MAIN_SHAPE, (6, 674), (1, 674), (2, 40_000),
-                              IMAGE_SHAPE, (2, 300_000)]:
+                              IMAGE_SHAPE, TEXT_SHAPE, (2, 300_000)]:
             u = unit(n_chains, dim)
             z = torch.randn(n_chains, dim, generator=gen).to(self.dev)
             eps = torch.rand(n_chains, generator=gen).to(self.dev) * 0.2 + 0.05
@@ -585,7 +636,9 @@ class Smoke:
         from mile_tpu_torch.mcmc import mclmc
 
         scfg = trainer.config.training.sampler
-        x, y = (torch.from_numpy(a).to(device, dtype)
+        # features and labels in ``dtype``; token ids stay integers
+        x, y = (torch.from_numpy(a).to(device, dtype if a.dtype.kind == 'f'
+                                       else None)
                 for a in trainer.loader.numpy_arrays('train'))
         vg = trainer.bayes.logdensity_and_grad_fn(x, y)
         kernel = mclmc.build_kernel(
@@ -803,18 +856,12 @@ Step by step: each card step is held against the same step taken on
 
     def image_path(self):
         """BDETrainer on LeNet at full width (IMAGE_SHAPE, 48,000 training
-        images, likelihood chunks of 8192), step counts cut to IMAGE_CUT:
-        K1 3 times and K3 once per MCLMC step on the resident-cluster
-        route, finite metrics with accuracies above chance, the draws on
-        disk through the native sink; then the step and gradient checks,
-        the gradient's time and a profiled step."""
-        import numpy as np
+        images, likelihood chunks of 8192), step counts cut to IMAGE_CUT,
+        through :meth:`_mclmc_path`."""
         import shutil
 
-        torch = self.torch
         from mile_tpu_torch.config import Config
         from mile_tpu_torch.ops import isokinetic as ops
-        from mile_tpu_torch.train.checkpoint import load_flat_samples
         from mile_tpu_torch.train.trainer import BDETrainer
 
         self._image_archive()
@@ -837,7 +884,25 @@ Step by step: each card step is held against the same step taken on
                    f'{scfg.n_chains} chains, {n_train} training images of '
                    f'{trainer.loader.input_shape}, likelihood chunks of '
                    f'{scfg.likelihood_chunk_size}; K1/K3 route {route}')
+        self._mclmc_path('image', 'LeNet', trainer, IMAGE_SHAPE, chance=0.1)
 
+    def _mclmc_path(self, key: str, label: str, trainer, shape,
+                    chance: float):
+        """A path's BDETrainer phases, one by one and timed, with the launch
+        counts set to 0 just before and read just after: K1 3 times and K3
+        once per MCLMC step, finite metrics with accuracies above
+        ``chance``, the draws on disk through the native sink; then one
+        step kernels vs plain versions, the card vs the CPU in float32,
+        the gradient's time and a profiled step. ``timings[key]`` keeps
+        the numbers. Returns the sampling result."""
+        import numpy as np
+
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+
+        scfg = trainer.config.training.sampler
+        n_chains, dim = shape
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -849,25 +914,25 @@ Step by step: each card step is held against the same step taken on
         t2 = time.perf_counter()
         metrics = trainer.evaluate(members, result)
         t3 = time.perf_counter()
-        self.image_launches = {
-            'isokinetic_momentum': ops.isokinetic_momentum.launches,
-            'partial_refresh': ops.partial_refresh.launches}
+        launches = {'isokinetic_momentum': ops.isokinetic_momentum.launches,
+                    'partial_refresh': ops.partial_refresh.launches}
+        self.path_launches[key] = launches
 
         n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
         n_sampled = n_kept * scfg.n_thinning
         n_steps = scfg.warmup_steps + n_sampled
-        self.check(self.image_launches['isokinetic_momentum'] == 3 * n_steps
-                   and self.image_launches['partial_refresh'] == n_steps,
-                   f'launches in the image path: K1 '
-                   f'{self.image_launches["isokinetic_momentum"]} (3 x '
-                   f'{n_steps} MCLMC steps), K3 '
-                   f'{self.image_launches["partial_refresh"]} (1 x {n_steps})')
+        self.check(launches['isokinetic_momentum'] == 3 * n_steps
+                   and launches['partial_refresh'] == n_steps,
+                   f'launches in the {key} path: K1 '
+                   f'{launches["isokinetic_momentum"]} (3 x {n_steps} MCLMC '
+                   f'steps), K3 {launches["partial_refresh"]} (1 x '
+                   f'{n_steps})')
         values = {k: float(metrics[k]) for k in
                   ('lppd', 'nll', 'acc', 'de_lppd', 'de_acc')}
         self.check(all(math.isfinite(v) for v in values.values())
-                   and values['acc'] > 0.1 and values['de_acc'] > 0.1,
-                   f'LeNet metrics finite, accuracies above chance (0.1): '
-                   f'{values}')
+                   and values['acc'] > chance and values['de_acc'] > chance,
+                   f'{label} metrics finite, accuracies above chance '
+                   f'({chance:g}): {values}')
         sink = trainer.sink
         rows = sum((trainer.samples_dir / f'chain_{c}' / 'samples.bin')
                    .stat().st_size for c in range(n_chains)) // (4 * dim)
@@ -877,14 +942,14 @@ Step by step: each card step is held against the same step taken on
                    and rows == n_chains * n_kept
                    and samples.shape == (n_chains, n_kept, dim)
                    and bool(np.isfinite(samples).all()),
-                   f'LeNet draws through the native sink: rows_written '
+                   f'{label} draws through the native sink: rows_written '
                    f'{getattr(sink, "rows_written", None)} per chain (= '
                    f'{n_kept}), {rows} rows on disk, load_flat_samples '
                    f'{samples.shape}, finite')
         print(f'  tuned step_size {np.round(result.tuned["step_size"], 5)}')
         print(f'  tuned L {np.round(result.tuned["L"], 4)}')
         rate = n_chains * n_sampled / result.seconds['sampling']
-        self.timings['image'] = {
+        self.timings[key] = {
             'phase_s': {'warmstart': t1 - t0,
                         'tuner': result.seconds['warmup'],
                         'sampling': result.seconds['sampling'],
@@ -893,13 +958,15 @@ Step by step: each card step is held against the same step taken on
             'mclmc_steps': n_steps, 'sampling_steps': n_sampled,
             'chain_steps_per_s': rate, 'metrics': values,
             'peak_device_mib': torch.cuda.max_memory_allocated() / 2 ** 20}
-        print(f'  LeNet phases (s): '
-              f'{json.dumps(self.timings["image"]["phase_s"])}; sampling '
+        print(f'  {label} phases (s): '
+              f'{json.dumps(self.timings[key]["phase_s"])}; sampling '
               f'{n_sampled} steps of {n_chains} chains: {rate:.2f} '
-              f'chain-steps/s')
-        self._image_step_check(trainer, result)
-        self._image_gradient_check(trainer, result)
-        self._image_profile(trainer, result)
+              f'chain-steps/s; peak device memory '
+              f'{self.timings[key]["peak_device_mib"]:.0f} MiB')
+        self._step_check(key, label, trainer, result, shape)
+        self._gradient_check(key, label, trainer, result)
+        self._path_profile(key, label, trainer, result)
+        return result
 
     @contextlib.contextmanager
     def _plain_ops(self):
@@ -919,31 +986,30 @@ Step by step: each card step is held against the same step taken on
         finally:
             integrators.isokinetic_momentum, mclmc.partial_refresh = saved
 
-    def _image_step_check(self, trainer, result):
+    def _step_check(self, key, label, trainer, result, shape):
         """One MCLMC step on the card from the path's final state with the
         same injected normals, through the kernels and through the plain
         versions (both under the sampler's matmul precision): positions
-        within IMAGE_STEP_X_TOL, momenta within IMAGE_STEP_U_ATOL, ΔE within
+        within STEP_X_TOL, momenta within STEP_U_ATOL, ΔE within
         64 float32 units of |logp| + |logp'| + |ΔK| (the bound of the
         airfoil check)."""
         torch = self.torch
         from mile_tpu_torch.utils.precision import matmul_precision
 
-        z = torch.randn(*IMAGE_SHAPE, generator=torch.Generator()
-                        .manual_seed(23))
+        z = torch.randn(*shape, generator=torch.Generator().manual_seed(23))
         precision = trainer.config.training.sampler.matmul_precision
         out = {}
-        for label in ('kernels', 'plain'):
+        for kind in ('kernels', 'plain'):
             start, step, _ = self._kernel(trainer, result, self.dev,
                                           torch.float32, [z])
             with contextlib.ExitStack() as stack:
-                if label == 'plain':
+                if kind == 'plain':
                     stack.enter_context(self._plain_ops())
                 stack.enter_context(matmul_precision(precision))
                 state = start(result.final_state)
-                out[label] = (state, *step(state))
+                out[kind] = (state, *step(state))
         (s0, ks, ki), (_, ps, pi) = out['kernels'], out['plain']
-        x_atol, x_rtol = IMAGE_STEP_X_TOL
+        x_atol, x_rtol = STEP_X_TOL
         dx = float(((ks.position - ps.position).abs()
                     / (x_atol + x_rtol * ps.position.abs())).max())
         du = float((ks.momentum - ps.momentum).abs().max())
@@ -952,28 +1018,29 @@ Step by step: each card step is held against the same step taken on
         de_units = float(((ki.energy_change - pi.energy_change).abs()
                           / unit).max())
         moved = float((ks.position - s0.position).abs().max())
-        self.timings['image_step_check'] = {
+        self.timings[f'{key}_step_check'] = {
             'x_within_tol': dx, 'max_du': du, 'dE_units': de_units,
             'moved': moved}
-        self.check(dx <= 1.0 and du <= IMAGE_STEP_U_ATOL
+        self.check(dx <= 1.0 and du <= STEP_U_ATOL
                    and de_units <= 64.0,
-                   f'one LeNet MCLMC step on the card, kernels vs plain '
-                   f'versions, same state and normals: positions within '
-                   f'{dx:.2f} of atol {x_atol:g} + rtol {x_rtol:g} |x| '
-                   f'(the step moved them up to {moved:.2e}), max|du| '
-                   f'{du:.2e} (atol {IMAGE_STEP_U_ATOL:g}), dE '
+                   f'one {label} MCLMC step {shape} on the card, kernels vs '
+                   f'plain versions, same state and normals: positions '
+                   f'within {dx:.2f} of atol {x_atol:g} + rtol {x_rtol:g} '
+                   f'|x| (the step moved them up to {moved:.2e}), max|du| '
+                   f'{du:.2e} (atol {STEP_U_ATOL:g}), dE '
                    f'{de_units:.1f} float32 units (<= 64)')
 
-    def _image_gradient_check(self, trainer, result):
+    def _gradient_check(self, key, label, trainer, result):
         """The log-posterior and the log-likelihood alone, with their
-        gradients, at the tuned state on the first IMAGE_GRAD_ROWS training
-        images: on the card under the sampler's matmul precision, on the
-        CPU in float32, and on the card with TF32 allowed in matmuls and
-        convolutions (the witness). At the tuned state the likelihood is
-        small beside the prior, so a TF32 error hides in the posterior's
-        gradient; the likelihood's gradient is held apart, and the witness
-        must exceed its tolerance, which shows the check can see TF32.
-        Also times one full-batch value and gradient on the card."""
+        gradients, at the tuned state on the first GRAD_ROWS training
+        observations: on the card under the sampler's matmul precision, on
+        the CPU in float32, and on the card with TF32 allowed in matmuls
+        and convolutions (the witness). At the tuned state the likelihood
+        is small beside the prior, so a TF32 error hides in the
+        posterior's gradient; the likelihood's gradient is held apart, and
+        the witness must exceed its tolerance, which shows the check can
+        see TF32. Also times one full-batch value and gradient on the
+        card."""
         torch = self.torch
         from mile_tpu_torch.bayes.posterior import value_and_grad
         from mile_tpu_torch.utils.precision import matmul_precision
@@ -990,42 +1057,42 @@ Step by step: each card step is held against the same step taken on
                 yield   # the scope puts cuDNN's switch back on exit
 
         runs = {}
-        for label, device, scope in (
+        for run, device, scope in (
                 ('card', self.dev, lambda: matmul_precision(precision)),
                 ('cpu', torch.device('cpu'),
                  lambda: matmul_precision('float32')),
                 ('card_tf32', self.dev, tf32)):
-            xs = torch.from_numpy(x[:IMAGE_GRAD_ROWS]).to(device)
-            ys = torch.from_numpy(y[:IMAGE_GRAD_ROWS]).to(device)
+            xs = torch.from_numpy(x[:GRAD_ROWS]).to(device)
+            ys = torch.from_numpy(y[:GRAD_ROWS]).to(device)
             fns = {'posterior': bayes.logdensity_fn(xs, ys),
                    'likelihood': lambda t: bayes.log_likelihood(t, xs, ys)}
             with scope():
-                runs[label] = {k: [a.cpu() for a in value_and_grad(f)(
+                runs[run] = {k: [a.cpu() for a in value_and_grad(f)(
                     theta.to(device))] for k, f in fns.items()}
         errors = {}
-        for label in ('card', 'card_tf32'):
+        for run in ('card', 'card_tf32'):
             for k in ('posterior', 'likelihood'):
-                (v, g), (rv, rg) = runs[label][k], runs['cpu'][k]
-                errors[f'{label}_{k}'] = {
+                (v, g), (rv, rg) = runs[run][k], runs['cpu'][k]
+                errors[f'{run}_{k}'] = {
                     'value_rel': float(((v - rv).abs() / rv.abs()).max()),
                     'grad_over_max': float((g - rg).abs().max()
                                            / rg.abs().max())}
-        self.timings['image_gradient_check'] = errors
+        self.timings[f'{key}_gradient_check'] = errors
         post, lik = errors['card_posterior'], errors['card_likelihood']
         witness = errors['card_tf32_likelihood']['grad_over_max']
-        self.check(post['value_rel'] <= IMAGE_GRAD_RTOL
-                   and post['grad_over_max'] <= IMAGE_GRAD_GTOL
-                   and lik['grad_over_max'] <= IMAGE_GRAD_GTOL
-                   and witness > IMAGE_GRAD_GTOL,
-                   f'LeNet at the tuned state on {IMAGE_GRAD_ROWS} images, '
-                   f'card vs CPU in float32: log-posterior rel '
-                   f'{post["value_rel"]:.1e} (rtol {IMAGE_GRAD_RTOL:g}), its '
+        self.check(post['value_rel'] <= GRAD_RTOL
+                   and post['grad_over_max'] <= GRAD_GTOL
+                   and lik['grad_over_max'] <= GRAD_GTOL
+                   and witness > GRAD_GTOL,
+                   f'{label} at the tuned state on {GRAD_ROWS} '
+                   f'observations, card vs CPU in float32: log-posterior rel '
+                   f'{post["value_rel"]:.1e} (rtol {GRAD_RTOL:g}), its '
                    f'gradient {post["grad_over_max"]:.1e} max|g|; '
                    f'log-likelihood rel {lik["value_rel"]:.1e}, its gradient '
                    f'{lik["grad_over_max"]:.1e} max|g| (each gradient atol '
-                   f'{IMAGE_GRAD_GTOL:g} max|g|); with TF32 on the card the '
+                   f'{GRAD_GTOL:g} max|g|); with TF32 on the card the '
                    f'likelihood gradient parts by {witness:.1e} max|g| (must '
-                   f'exceed {IMAGE_GRAD_GTOL:g})')
+                   f'exceed {GRAD_GTOL:g})')
 
         xs, ys = trainer.loader.arrays('train')
         vg = trainer.bayes.logdensity_and_grad_fn(xs, ys)
@@ -1038,14 +1105,14 @@ Step by step: each card step is held against the same step taken on
                 vg(theta)
                 torch.cuda.synchronize()
                 times.append(1e3 * (time.perf_counter() - t0))
-        self.timings['image']['gradient_ms'] = times
-        print(f'  full-batch value and gradient, {IMAGE_SHAPE[0]} chains x '
-              f'{xs.shape[0]} images: {statistics.median(times):.1f} ms '
-              f'(median of {times})')
+        self.timings[key]['gradient_ms'] = times
+        print(f'  full-batch value and gradient, {theta.shape[0]} chains x '
+              f'{xs.shape[0]} observations: '
+              f'{statistics.median(times):.1f} ms (median of {times})')
 
-    def _image_profile(self, trainer, result, n_steps: int = 2):
-        """Where a LeNet step's time goes: ``n_steps`` bare MCLMC steps at
-        the tuned parameters under the profiler: wall and device time per
+    def _path_profile(self, key, label, trainer, result, n_steps: int = 2):
+        """Where a step's time goes: ``n_steps`` bare MCLMC steps at the
+        tuned parameters under the profiler: wall and device time per
         step, the device's busy share and the 10 device operations that
         take the most time."""
         torch = self.torch
@@ -1064,7 +1131,7 @@ Step by step: each card step is held against the same step taken on
                         state, _ = step(state)
 
             wall_us, busy, rows, card = self._profiled(steps)
-            self.timings['image_profile'] = {
+            self.timings[f'{key}_profile'] = {
                 'steps': n_steps, 'wall_ms_per_step': wall_us / n_steps / 1e3,
                 'device_ms_per_step': busy / n_steps / 1e3,
                 'device_busy_share': busy / wall_us,
@@ -1073,10 +1140,117 @@ Step by step: each card step is held against the same step taken on
                 'top': [{'name': k[:80], 'launches_per_step': c / n_steps,
                          'ms_per_step': d / n_steps / 1e3}
                         for d, c, k in rows[:10]]}
-            print(f'  LeNet profile '
-                  f'{json.dumps(self.timings["image_profile"])}')
+            print(f'  {label} profile '
+                  f'{json.dumps(self.timings[f"{key}_profile"])}')
         except Exception as exc:
-            print(f'  LeNet profiler unavailable: {exc!r}')
+            print(f'  {label} profiler unavailable: {exc!r}')
+
+    # -------------------------------------------------------- text path
+    def _text_corpus(self):
+        """An IMDB-sized corpus: 50,000 texts over TEXT_CHARS characters
+        (U+4E00 onward), lengths uniform in 16-400, labels 0/1 balanced,
+        the characters Zipf(1.1)-distributed over a random ranking: the
+        class's own with probability TEXT_CLASS_MIX, else one both classes
+        share, so that accuracy can rise above chance."""
+        import numpy as np
+
+        rng = np.random.default_rng(TEXT_SEED)
+        n = 50_000
+        y = rng.permutation(np.arange(n) % 2)
+        lengths = rng.integers(16, 401, n)
+        zipf = np.arange(1, TEXT_CHARS + 1) ** -1.1
+        zipf /= zipf.sum()
+        chars = np.empty(int(lengths.sum()), np.uint32)
+        ends = np.cumsum(lengths)
+        starts = ends - lengths
+        shared = rng.permutation(TEXT_CHARS)
+        for label in (0, 1):
+            own = rng.permutation(TEXT_CHARS)
+            rows = np.flatnonzero(y == label)
+            index = np.concatenate([np.arange(starts[r], ends[r])
+                                    for r in rows])
+            rank = rng.choice(TEXT_CHARS, index.size, p=zipf)
+            chars[index] = 0x4E00 + np.where(
+                rng.random(index.size) < TEXT_CLASS_MIX, own[rank],
+                shared[rank])
+        text = chars.view(f'U{chars.size}')[0]
+        TEXT_CORPUS.parent.mkdir(parents=True, exist_ok=True)
+        with open(TEXT_CORPUS, 'w', encoding='utf-8') as f:
+            f.write('text,label\n')
+            f.writelines(f'{text[a:b]},{label}\n'
+                         for a, b, label in zip(starts, ends, y))
+
+    def text_path(self):
+        """BDETrainer on the IMDB-width AttentionClassifier at full width
+        (TEXT_SHAPE, 35,000 training sequences of 70 tokens, likelihood
+        chunks of 4096), step counts cut to TEXT_CUT, through
+        :meth:`_mclmc_path`; and a batch with pads and an all-pad
+        sequence, card against CPU."""
+        import shutil
+
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        t0 = time.perf_counter()
+        self._text_corpus()
+        (config,) = Config.from_file(TEXT_CONFIG)
+        config = config.replace(saving_dir=str(TEXT_RESULTS.parent),
+                                experiment_name=TEXT_RESULTS.name,
+                                **{'data.path': str(TEXT_CORPUS)},
+                                **TEXT_CUT)
+        scfg = config.training.sampler
+        shutil.rmtree(TEXT_RESULTS, ignore_errors=True)
+        trainer = BDETrainer(config, device=self.dev)
+        set_up = time.perf_counter() - t0
+        n_chains, dim = TEXT_SHAPE
+        x, _ = trainer.loader.numpy_arrays('train')
+        route = ops.kernel_route(dim)
+        pads = float((x == 0).any(axis=1).mean())
+        print(f'  K1/K3 route at dim {dim}: {route}')
+        self.check(trainer.bayes.dim == dim and scfg.n_chains == n_chains
+                   and x.shape == (TEXT_TRAIN, 70)
+                   and trainer.loader.tokenizer.vocab_size == 1000
+                   and scfg.likelihood_chunk_size == 4096
+                   and route.cluster == 8 and route.resident,
+                   f'AttentionClassifier at full width: dim '
+                   f'{trainer.bayes.dim}, {scfg.n_chains} chains, '
+                   f'{x.shape[0]} training sequences of {x.shape[1]} '
+                   f'tokens ({100 * pads:.1f} % padded), vocabulary '
+                   f'{trainer.loader.tokenizer.vocab_size} (1000), '
+                   f'likelihood chunks of {scfg.likelihood_chunk_size}; '
+                   f'set-up (corpus, tokenizer, loader) {set_up:.1f} s')
+        result = self._mclmc_path('text', 'AttentionClassifier', trainer,
+                                  TEXT_SHAPE, chance=0.5)
+        self.timings['text']['set_up_s'] = set_up
+        self._pad_check(trainer, result.final_state.position)
+
+    def _pad_check(self, trainer, theta):
+        """Training sequences with pads and one all-pad sequence through
+        the model at the tuned state: finite on the card, and the card's
+        outputs equal to the CPU's within TEXT_PAD_TOL (exact float32
+        matmuls on both)."""
+        import numpy as np
+
+        torch = self.torch
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        x, _ = trainer.loader.numpy_arrays('train')
+        rows = np.flatnonzero((x == 0).any(axis=1))[:63]
+        batch = np.concatenate([x[rows], np.zeros((1, x.shape[1]),
+                                                  x.dtype)])
+        with matmul_precision('float32'), torch.no_grad():
+            card, cpu = (trainer.model(theta.to(device),
+                                       torch.from_numpy(batch).to(device))
+                         .cpu() for device in (self.dev, torch.device('cpu')))
+        err = float((card - cpu).abs().max())
+        self.timings['text_pad_check'] = {'max_abs_err': err,
+                                          'max_abs': float(cpu.abs().max())}
+        self.check(bool(torch.isfinite(card).all()) and err <= TEXT_PAD_TOL,
+                   f'{len(batch) - 1} sequences with pads and one all pads, '
+                   f'{theta.shape[0]} chains: finite on the card, max|card '
+                   f'- CPU| {err:.1e} (atol {TEXT_PAD_TOL:g}) on outputs up '
+                   f'to {float(cpu.abs().max()):.2f}')
 
     # -------------------------------------------------------- NUTS path
     @contextlib.contextmanager
@@ -1470,12 +1644,14 @@ def main() -> int:
                     smoke.main_path)
         smoke.phase('image path: BDETrainer on LeNet, 10 chains, dim 61,706',
                     smoke.image_path)
+        smoke.phase('text path: BDETrainer on AttentionClassifier, 8 chains, '
+                    'dim 65,248', smoke.text_path)
         if smoke.phase('NUTS path: BDETrainer on airfoil NUTS, 12 chains, '
                        'dim 674, depth 10', smoke.nuts_path):
             smoke.phase('HMC: a short run on the same posterior',
                         smoke.hmc_run)
-        smoke.phase('timings at (12, 674), (1, 674), (10, 61706) and '
-                    '(2, 300000)', smoke.kernel_timings)
+        smoke.phase('timings at ' + ', '.join(
+            f'({c}, {d})' for c, d in TIMED_SHAPES), smoke.kernel_timings)
     if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))
            or m == 'mile_tpu' for m in sys.modules):
         smoke.failures.append('JAX or the JAX package was imported')
@@ -1486,19 +1662,21 @@ def main() -> int:
     kernels = []
     for name, source_fn, replaces, err in (
             ('isokinetic_momentum', 'isokinetic_momentum_kernel',
-             'mile_tpu/ops/isokinetic.py:120 (_batched_momentum_kernel); '
-             ':71 (_momentum_kernel) with C = 1', smoke.k1_err),
+             'mile_tpu/ops/isokinetic.py:121 (_batched_momentum_kernel, '
+             'pallas_call :154); :72 (_momentum_kernel) with C = 1',
+             smoke.k1_err),
             ('partial_refresh', 'partial_refresh_kernel',
-             'mile_tpu/ops/isokinetic.py:313 (_batched_refresh_kernel); '
-             ':265 (_refresh_kernel) with C = 1', smoke.k3_err)):
+             'mile_tpu/ops/isokinetic.py:314 (_batched_refresh_kernel, '
+             'pallas_call :342); :266 (_refresh_kernel) with C = 1',
+             smoke.k3_err)):
         t = timings.get(f'{name} {MAIN_SHAPE}', {})
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'mile_tpu_torch/csrc/isokinetic.cu ({source_fn})',
             'replaces': replaces,
-            # the airfoil path's and the image path's
-            'launches': smoke.launches.get(name, 0)
-            + smoke.image_launches.get(name, 0),
+            # the airfoil, image and text paths
+            'launches': smoke.launches.get(name, 0) + sum(
+                path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,
             'ms': t.get('ms'), 'plain_ms': t.get('plain_ms'),
             'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),

@@ -112,8 +112,9 @@ class BayesianModel:
 
     def log_likelihood(self, theta: torch.Tensor, x, y) -> torch.Tensor:
         """Chunks run along the observation axis, whatever follows it
-        (``(N, F)`` rows or ``(N, C, H, W)`` images): full chunks are
-        recomputed in the backward pass, the remainder is not."""
+        (``(N, F)`` rows, ``(N, C, H, W)`` images or ``(N, T)`` token
+        ids): full chunks are recomputed in the backward pass, the
+        remainder is not."""
         chunk = self.likelihood_chunk_size
         if not chunk or x.shape[0] <= chunk:
             return self._chunk_loglik(theta, x, y)

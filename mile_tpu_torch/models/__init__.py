@@ -1,8 +1,13 @@
-"""Models (counterpart of ``mile_tpu.models``; the FCN and the CNNs so
-far)."""
+"""Models (counterpart of ``mile_tpu.models``: the FCN, the CNNs and the
+attention classifiers)."""
 from __future__ import annotations
 
 from mile_tpu_torch.config.models import ModelConfig
+from mile_tpu_torch.models.attention import (  # noqa: F401
+    AttentionClassifier,
+    EmbeddingClassifier,
+    PretrainedAttentionClassifier,
+)
 from mile_tpu_torch.models.cnn import LeNet, LeNetti  # noqa: F401
 from mile_tpu_torch.models.fcn import FCN  # noqa: F401
 from mile_tpu_torch.models.layout import (  # noqa: F401
@@ -11,13 +16,21 @@ from mile_tpu_torch.models.layout import (  # noqa: F401
     jax_leaves_from_flat,
 )
 
-MODEL_REGISTRY = {'FCN': FCN, 'LeNet': LeNet, 'LeNetti': LeNetti}
+MODEL_REGISTRY = {
+    'FCN': FCN,
+    'LeNet': LeNet,
+    'LeNetti': LeNetti,
+    'AttentionClassifier': AttentionClassifier,
+    'PretrainedAttentionClassifier': PretrainedAttentionClassifier,
+    'EmbeddingClassifier': EmbeddingClassifier,
+}
 
 
 def build_model(config: ModelConfig, input_shape: int | tuple[int, ...]):
     """The network named by ``config.model`` for observations of
     ``input_shape``: ``(F,)`` (or the int ``F``) for the FCN, ``(C, H, W)``
-    for the CNNs."""
+    for the CNNs, ``(context_len,)`` token ids for the text models
+    (``(T, F)`` embeddings for ``EmbeddingClassifier``)."""
     if config.model not in MODEL_REGISTRY:
         from mile_tpu_torch.exceptions import NotYetPortedError
 

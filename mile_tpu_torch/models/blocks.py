@@ -1,10 +1,14 @@
 """Network building blocks over flat, chain-batched parameters
-(counterpart of ``mile_tpu/models/blocks.py``)."""
+(counterpart of ``mile_tpu/models/blocks.py``, and of the Flax layers the
+JAX package builds its models from: Dense, Conv, Embed and
+MultiHeadDotProductAttention)."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+import os
+from typing import Callable, Mapping, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -14,6 +18,15 @@ from mile_tpu_torch.models.layout import FlatLayout
 # flax.linen.initializers.lecun_normal: a normal truncated to [-2, 2],
 # rescaled by this constant so that its variance is 1/fan_in
 _TRUNC_STD = 0.87962566103423978
+
+
+class Init(NamedTuple):
+    """How one leaf is drawn, with variance 1/fan_in: Flax's lecun_normal
+    (``truncated``; Dense, DenseGeneral and Conv kernels) or ``nn.Embed``'s
+    untruncated normal. The module that owns a leaf gives its rule."""
+
+    fan_in: int
+    truncated: bool = True
 
 
 def lecun_normal(shape: tuple[int, ...], fan_in: int,
@@ -27,33 +40,51 @@ def lecun_normal(shape: tuple[int, ...], fan_in: int,
     return (z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).float()
 
 
-def init_flat(layout: FlatLayout, n: int,
+def init_flat(layout: FlatLayout, inits: Mapping[str, Init], n: int,
               generator: torch.Generator) -> torch.Tensor:
-    """``n`` fresh members ``(n, dim)``, initialized as Flax's Dense and
-    Conv: lecun-normal kernels, zero biases. A kernel's fan-in is the
-    product of all its axes but the last: ``in`` for a Dense kernel
-    ``(in, out)``, ``kh * kw * in`` for a Conv kernel
-    ``(kh, kw, in, out)``."""
+    """``n`` fresh members ``(n, dim)``: each leaf whose path ``inits``
+    names is drawn by its rule, leaf by leaf in layout order; every other
+    leaf (the biases) is zero, as Flax's ``zeros`` bias initializer."""
     flat = torch.zeros(n, layout.dim)
     for leaf in layout.leaves:
-        if leaf.path.endswith('/kernel'):
-            flat[:, leaf.offset:leaf.offset + leaf.size] = lecun_normal(
-                (n, leaf.size), math.prod(leaf.shape[:-1]), generator)
+        rule = inits.get(leaf.path)
+        if rule is None:
+            continue
+        if rule.truncated:
+            block = lecun_normal((n, leaf.size), rule.fan_in, generator)
+        else:
+            block = (torch.randn((n, leaf.size), generator=generator,
+                                 dtype=torch.float64)
+                     * math.sqrt(1.0 / rule.fan_in)).float()
+        flat[:, leaf.offset:leaf.offset + leaf.size] = block
     return flat
+
+
+def leaf_view(theta: torch.Tensor, layout: FlatLayout,
+              path: str) -> torch.Tensor:
+    """Every chain's leaf ``path``: ``(C, *shape)``, a view of ``theta``."""
+    leaf = layout[path]
+    return theta[:, leaf.offset:leaf.offset + leaf.size].view(
+        theta.shape[0], *leaf.shape)
+
+
+def dense_params(in_features: int, features: int, use_bias: bool) -> dict:
+    """A Flax Dense layer's leaves: ``kernel (in, out)``, ``bias (out,)``."""
+    shapes = {'kernel': (in_features, features)}
+    if use_bias:
+        shapes['bias'] = (features,)
+    return shapes
 
 
 def dense(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
           name: str, use_bias: bool = True) -> torch.Tensor:
     """The Dense layer ``name`` of every chain: ``h`` (C, N, in) ->
     (C, N, out). A Flax Dense kernel is ``(in, out)``, as ``bmm`` wants."""
-    n_chains = theta.shape[0]
-    k = layout[f'{name}/kernel']
-    w = theta[:, k.offset:k.offset + k.size].view(n_chains, *k.shape)
+    w = leaf_view(theta, layout, f'{name}/kernel')
     if not use_bias:
         return torch.bmm(h, w)
-    b = layout[f'{name}/bias']
-    return torch.baddbmm(theta[:, b.offset:b.offset + b.size].unsqueeze(1),
-                         h, w)
+    return torch.baddbmm(leaf_view(theta, layout, f'{name}/bias')
+                         .unsqueeze(1), h, w)
 
 
 def conv2d(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
@@ -100,14 +131,17 @@ class FullyConnected(nn.Module):
         self.layer_names = [f'{prefix}layer{i}'
                             for i in range(len(self.hidden_sizes))]
 
+    def _fan_ins(self):
+        return zip(self.layer_names, (self.in_features,)
+                   + self.hidden_sizes[:-1], self.hidden_sizes)
+
     def param_shapes(self) -> dict:
-        shapes, fan_in = {}, self.in_features
-        for name, size in zip(self.layer_names, self.hidden_sizes):
-            shapes[name] = {'kernel': (fan_in, size)}
-            if self.use_bias:
-                shapes[name]['bias'] = (size,)
-            fan_in = size
-        return shapes
+        return {name: dense_params(fan_in, size, self.use_bias)
+                for name, fan_in, size in self._fan_ins()}
+
+    def param_inits(self, scope: str) -> dict[str, Init]:
+        return {f'{scope}/{name}/kernel': Init(fan_in)
+                for name, fan_in, _ in self._fan_ins()}
 
     def forward(self, theta: torch.Tensor, x: torch.Tensor,
                 layout: FlatLayout, scope: str) -> torch.Tensor:
@@ -123,3 +157,216 @@ class FullyConnected(nn.Module):
             elif self.last_layer_activation is not None:
                 h = self.last_layer_activation(h)
         return h
+
+
+def check_token_ids(tokens: torch.Tensor, vocab_size: int,
+                    what: str = 'the embedding table') -> None:
+    """Token ids must index ``vocab_size`` rows. The JAX package's gather
+    fills an id out of range with NaN; on the card it would index out of
+    bounds, so here it raises."""
+    if tokens.is_floating_point():
+        raise ValueError(f'token ids must be integers, got {tokens.dtype}')
+    if tokens.numel() == 0:
+        return
+    lo, hi = torch.stack(torch.aminmax(tokens)).tolist()   # one host read
+    if lo < 0 or hi >= vocab_size:
+        raise ValueError(
+            f'token ids span [{lo}, {hi}] but {what} has {vocab_size} rows; '
+            f'set the model\'s vocab_size to at least the tokenizer\'s '
+            f'vocabulary ({hi + 1} or more)')
+
+
+class TokenEmbedding:
+    """Flax's ``TokenEmbedding``: an ``nn.Embed`` table ``Embedding
+    (vocab, emb)`` and, with ``pos_size``, learned positions
+    ``PositionEmbedding (pos_size, emb)``, read from flat chain-batched
+    parameters."""
+
+    def __init__(self, vocab_size: int, emb_size: int,
+                 pos_size: Optional[int] = None):
+        self.vocab_size = vocab_size
+        self.emb_size = emb_size
+        self.pos_size = pos_size
+
+    def param_shapes(self) -> dict:
+        shapes = {'Embedding': {'embedding': (self.vocab_size,
+                                              self.emb_size)}}
+        if self.pos_size:
+            shapes['PositionEmbedding'] = {
+                'embedding': (self.pos_size, self.emb_size)}
+        return shapes
+
+    def param_inits(self, scope: str) -> dict[str, Init]:
+        """``nn.Embed``'s default: an untruncated normal, variance 1/emb."""
+        return {f'{scope}/{name}/embedding': Init(self.emb_size, False)
+                for name in self.param_shapes()}
+
+    def __call__(self, theta: torch.Tensor, tokens: torch.Tensor,
+                 layout: FlatLayout, scope: str) -> torch.Tensor:
+        """``tokens`` ``(N, T)`` shared by every chain or ``(C, N, T)``
+        -> ``(C, N, T, emb)``: each chain gathers from its own table."""
+        check_token_ids(tokens, self.vocab_size)
+        n_chains, t = theta.shape[0], tokens.shape[-1]
+        table = leaf_view(theta, layout, f'{scope}/Embedding/embedding')
+        # one gather from the chains' tables stacked (C * vocab, emb):
+        # F.embedding's backward sums the rows of repeated ids segment by
+        # segment, where an indexing backward serializes them
+        offsets = torch.arange(n_chains, device=tokens.device)[:, None, None]
+        emb = F.embedding(tokens + offsets * self.vocab_size,
+                          table.reshape(n_chains * self.vocab_size,
+                                        self.emb_size))
+        if self.pos_size:
+            pos = leaf_view(theta, layout,
+                            f'{scope}/PositionEmbedding/embedding')
+            emb = emb + pos[:, None, :t]
+        return emb
+
+
+class PretrainedTokenEmbedding(nn.Module):
+    """Frozen embedding tables from ``.npy`` files (Flax's
+    ``PretrainedTokenEmbedding``): not parameters, so not in the flat
+    vector. The positions, with ``pos_size``, come from the sibling file
+    whose basename has its first ``emb`` renamed ``pos_emb``
+    (``emb.npy`` -> ``pos_emb.npy``); the directories keep their names."""
+
+    def __init__(self, pretrained_weights_path: str,
+                 pos_size: Optional[int] = None):
+        super().__init__()
+        self.pos_size = pos_size
+        self.register_buffer('emb', torch.from_numpy(np.asarray(
+            np.load(pretrained_weights_path), np.float32)))
+        if pos_size:
+            head, base = os.path.split(pretrained_weights_path)
+            pos_path = os.path.join(head, base.replace('emb', 'pos_emb', 1))
+            self.register_buffer('pos', torch.from_numpy(np.asarray(
+                np.load(pos_path), np.float32)))
+
+    @property
+    def emb_size(self) -> int:
+        return self.emb.shape[1]
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens`` ``(..., T)`` -> ``(..., T, emb)``, on the tokens'
+        device."""
+        check_token_ids(tokens, self.emb.shape[0],
+                        'the pretrained embedding table')
+        emb = self.emb.to(tokens.device)[tokens]
+        if self.pos_size:
+            emb = emb + self.pos.to(tokens.device)[:tokens.shape[-1]]
+        return emb
+
+
+def attention_params(in_features: int, n_heads: int, qkv_dim: int,
+                     out_features: int, bias: bool) -> dict:
+    """The leaves of Flax's ``MultiHeadDotProductAttention``: DenseGeneral
+    kernels ``query``/``key``/``value`` ``(in, heads, head_dim)`` and
+    ``out`` ``(heads, head_dim, out)``, with biases ``(heads, head_dim)``
+    and ``(out,)`` when ``bias``."""
+    if qkv_dim % n_heads:
+        raise ValueError(f'qkv_dim {qkv_dim} is not a multiple of n_heads '
+                         f'{n_heads}')
+    head_dim = qkv_dim // n_heads
+    shapes = {}
+    for name in ('query', 'key', 'value'):
+        shapes[name] = {'kernel': (in_features, n_heads, head_dim)}
+        if bias:
+            shapes[name]['bias'] = (n_heads, head_dim)
+    shapes['out'] = {'kernel': (n_heads, head_dim, out_features)}
+    if bias:
+        shapes['out']['bias'] = (out_features,)
+    return shapes
+
+
+def attention_inits(scope: str, in_features: int,
+                    qkv_dim: int) -> dict[str, Init]:
+    """DenseGeneral draws a kernel flattened to ``(prod(in axes),
+    prod(out axes))``: fan-in ``in`` for query, key and value, and
+    ``heads * head_dim`` for out."""
+    inits = {f'{scope}/{name}/kernel': Init(in_features)
+             for name in ('query', 'key', 'value')}
+    inits[f'{scope}/out/kernel'] = Init(qkv_dim)
+    return inits
+
+
+def multi_head_attention(theta: torch.Tensor, x: torch.Tensor,
+                         mask: Optional[torch.Tensor], layout: FlatLayout,
+                         scope: str, n_heads: int, qkv_dim: int,
+                         out_features: int, bias: bool) -> torch.Tensor:
+    """Self-attention of every chain, as Flax's
+    ``MultiHeadDotProductAttention`` computes it: ``x`` ``(C, N, T, F)``
+    (or ``(N, T, F)`` shared by every chain), ``mask`` boolean and
+    broadcastable to ``(C, N, heads, T, T)`` (True: attend) -> ``(C, N, T,
+    out)``.
+
+    The query is divided by sqrt(head_dim); masked scores are set to the
+    dtype's most negative finite value, not -inf, and the softmax runs in
+    float32. A row masked whole (a pad query) thus becomes uniform over
+    all T keys, pads included, as in Flax; -inf would give NaN, and
+    ``scaled_dot_product_attention`` zeros."""
+    n_chains = theta.shape[0]
+    if x.dim() == 3:
+        x = x.expand(n_chains, *x.shape)
+    _, n, t, f = x.shape
+    head_dim = qkv_dim // n_heads
+    h = x.reshape(n_chains, n * t, f)
+
+    def project(name):
+        w = leaf_view(theta, layout, f'{scope}/{name}/kernel')
+        y = torch.bmm(h, w.reshape(n_chains, f, qkv_dim))
+        if bias:
+            y = y + leaf_view(theta, layout, f'{scope}/{name}/bias').reshape(
+                n_chains, 1, qkv_dim)
+        # (C, N, T, heads, head_dim) -> (C, N, heads, T, head_dim)
+        return y.view(n_chains, n, t, n_heads, head_dim).transpose(2, 3)
+
+    q = project('query') / math.sqrt(head_dim)
+    k, v = project('key'), project('value')
+    scores = torch.matmul(q, k.transpose(-1, -2))      # (C, N, H, T, T)
+    if mask is not None:    # one pass; masked_fill would clone first
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    weights = F.softmax(scores, dim=-1, dtype=torch.float32).to(scores.dtype)
+    y = torch.matmul(weights, v).transpose(2, 3).reshape(
+        n_chains, n * t, qkv_dim)
+    w = leaf_view(theta, layout, f'{scope}/out/kernel').reshape(
+        n_chains, qkv_dim, out_features)
+    if bias:
+        y = torch.baddbmm(leaf_view(theta, layout, f'{scope}/out/bias')
+                          .unsqueeze(1), y, w)
+    else:
+        y = torch.bmm(y, w)
+    return y.view(n_chains, n, t, out_features)
+
+
+class MaskedMultiHeadSelfAttention:
+    """Flax's causal ``MaskedMultiHeadSelfAttention`` block: each position
+    attends to itself and the positions before it (``nn.make_causal_mask``);
+    its attention's leaves are ``MultiHeadDotProductAttention_0/...`` and
+    its output has the input's width."""
+
+    name = 'MultiHeadDotProductAttention_0'
+
+    def __init__(self, in_features: int, n_heads: int, qkv_dim: int,
+                 bias: bool):
+        self.in_features = in_features
+        self.n_heads = n_heads
+        self.qkv_dim = qkv_dim
+        self.bias = bias
+
+    def param_shapes(self) -> dict:
+        return {self.name: attention_params(
+            self.in_features, self.n_heads, self.qkv_dim, self.in_features,
+            self.bias)}
+
+    def param_inits(self, scope: str) -> dict[str, Init]:
+        prefix = f'{scope}/{self.name}' if scope else self.name
+        return attention_inits(prefix, self.in_features, self.qkv_dim)
+
+    def __call__(self, theta: torch.Tensor, x: torch.Tensor,
+                 layout: FlatLayout, scope: str = '') -> torch.Tensor:
+        t = x.shape[-2]
+        causal = torch.ones(t, t, dtype=torch.bool,
+                            device=x.device).tril()
+        prefix = f'{scope}/{self.name}' if scope else self.name
+        return multi_head_attention(theta, x, causal, layout, prefix,
+                                    self.n_heads, self.qkv_dim,
+                                    self.in_features, self.bias)

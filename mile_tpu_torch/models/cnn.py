@@ -31,7 +31,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from mile_tpu_torch.config.models import LeNetConfig, LeNettiConfig
-from mile_tpu_torch.models.blocks import conv2d, dense, init_flat
+from mile_tpu_torch.models.blocks import (
+    Init,
+    conv2d,
+    dense,
+    dense_params,
+    init_flat,
+)
 from mile_tpu_torch.models.layout import FlatLayout
 
 
@@ -61,13 +67,14 @@ class ChainCNN(nn.Module):
         self.input_shape = tuple(int(s) for s in input_shape)
         self.activation = config.activation.fn
         self.use_bias = config.use_bias
-        shapes, self._floats = {}, 0
+        shapes, self.inits, self._floats = {}, {}, 0
         c, h, w = self.input_shape
         self._floats += c * h * w                       # NCHW -> NHWC
         for conv in self.convs:
             shapes[conv.name] = {'kernel': (conv.kernel, conv.kernel, c,
                                             conv.features),
                                  'bias': (conv.features,)}
+            self.inits[f'{conv.name}/kernel'] = Init(conv.kernel ** 2 * c)
             c = conv.features
             h += 2 * conv.padding - conv.kernel + 1
             w += 2 * conv.padding - conv.kernel + 1
@@ -80,9 +87,8 @@ class ChainCNN(nn.Module):
         self._floats += fan_in                          # the flatten
         widths = self.dense_widths + (config.out_dim,)
         for i, (name, width) in enumerate(zip(self.dense_names, widths)):
-            shapes[name] = {'kernel': (fan_in, width)}
-            if self.use_bias:
-                shapes[name]['bias'] = (width,)
+            shapes[name] = dense_params(fan_in, width, self.use_bias)
+            self.inits[f'{name}/kernel'] = Init(fan_in)
             fan_in = width
             # product (+ bias broadcast and sum) (+ activation)
             self._floats += width * ((3 if self.use_bias else 1)
@@ -136,7 +142,7 @@ class ChainCNN(nn.Module):
     def init(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """``n`` fresh members ``(n, dim)``, initialized as Flax's Conv and
         Dense."""
-        return init_flat(self.layout, n, generator)
+        return init_flat(self.layout, self.inits, n, generator)
 
 
 class LeNet(ChainCNN):

@@ -50,4 +50,5 @@ class FCN(nn.Module):
 
     def init(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """``n`` fresh members ``(n, dim)``, initialized as flax's Dense."""
-        return init_flat(self.layout, n, generator)
+        return init_flat(self.layout, self.fcn.param_inits(self.scope), n,
+                         generator)

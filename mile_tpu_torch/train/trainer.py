@@ -68,6 +68,15 @@ class BDETrainer:
 
     def __init__(self, config: Config, device: str | torch.device = 'cuda'):
         check_supported(config)
+        if config.model.model == 'EmbeddingClassifier':
+            # the JAX trainer fails here too: module.init(key, x[:1]) gives
+            # the model one argument where it takes two
+            raise ValueError(
+                'EmbeddingClassifier takes (x, attn_mask): precomputed '
+                'embeddings and their attention mask, which no loader '
+                'gives; the trainer feeds a model its features alone. Use '
+                'AttentionClassifier or PretrainedAttentionClassifier on '
+                'text data')
         self.device = resolve_device(device)
         self.config = config
         self.exp_dir: Path = config.setup_dir()
@@ -79,7 +88,8 @@ class BDETrainer:
         self._gen_init, self._gen_train, self._gen_sample = (
             keys.init, keys.train, keys.sample)
         self.loader = build_loader(config.data, keys.loader, self.device,
-                                   target_len=config.data.target_len)
+                                   target_len=config.data.target_len,
+                                   tokenizer_config=config.training.tokenizer)
         self.model = config.get_model(self.loader.input_shape)
         if config.data.task == Task.CLASSIFICATION:
             # out-of-range labels would give NaN log-likelihoods

@@ -11,11 +11,13 @@ step's own (pre-update) forward pass; validation metrics per epoch.
 Early stopping is per member (``earlystop_mask`` semantics): a stopped
 member's parameters and optimizer state stay as they were.
 
-Image members take their own batches ``(M, B, C, H, W)``. The validation
-and test forwards are chunked over observations by the evaluation's
-planner, since unchunked they would hold every member's activations of the
-whole split at once (about 7 GB for LeNet on 12,000 images and 10
-members). The warm start runs in exact float32, convolutions included
+Image members take their own batches ``(M, B, C, H, W)``, text members
+their token batches ``(M, B, T)``. The validation and test forwards are
+chunked over observations by the evaluation's planner, since unchunked
+they would hold every member's activations of the whole split at once
+(about 7 GB for LeNet on 12,000 images and 10 members; the IMDB-width
+attention classifier holds 8 heads x 70 x 70 attention weights per member
+and sequence). The warm start runs in exact float32, convolutions included
 (see :mod:`mile_tpu_torch.utils.precision`).
 """
 from __future__ import annotations

@@ -334,16 +334,33 @@ def test_lenet_fmnist_config_runs_on_the_cpu(lenet_cli_run):
 @pytest.mark.parametrize('what', ['text loader', 'AttentionClassifier',
                                   'PretrainedAttentionClassifier',
                                   'EmbeddingClassifier', 'PartitionFCN'])
-def test_text_path_and_partition_fcn_are_not_yet_ported(what):
+def test_text_path_and_partition_fcn_are_not_yet_ported(what, tmp_path):
+    """Of the features this test once found missing, only PartitionFCN
+    still raises NotYetPortedError: the text loader and the three
+    attention models are ported (their parity tests are
+    ``tests/test_torch_text.py`` and ``tests/test_torch_attention.py``)
+    and build here."""
     from mile_tpu_torch.config.data import DataConfig
     from mile_tpu_torch.config.models import ModelConfig
-    from mile_tpu_torch.data import build_loader
+    from mile_tpu_torch.data import TextLoader, build_loader
     from mile_tpu_torch.exceptions import NotYetPortedError
     from mile_tpu_torch.models import build_model
 
-    with pytest.raises(NotYetPortedError, match='not yet ported'):
-        if what == 'text loader':
-            build_loader(DataConfig.from_dict(
-                {'path': 't.csv', 'data_type': 'text', 'task': 'class'}), 0)
-        else:
+    if what == 'PartitionFCN':
+        with pytest.raises(NotYetPortedError, match='not yet ported'):
             build_model(ModelConfig.resolve({'model': what}), (5,))
+    elif what == 'text loader':
+        path = tmp_path / 't.csv'
+        path.write_text('text,label\nab,0\nba,1\n')
+        loader = build_loader(DataConfig.from_dict(
+            {'path': str(path), 'data_type': 'text', 'task': 'class'}), 0)
+        assert isinstance(loader, TextLoader)
+        assert loader.input_shape == (64,)
+    else:
+        fields = {'model': what, 'context_len': 5}
+        if what == 'PretrainedAttentionClassifier':
+            np.save(tmp_path / 'emb.npy', np.ones((1000, 4), np.float32))
+            np.save(tmp_path / 'pos_emb.npy', np.ones((5, 4), np.float32))
+            fields['emb_path'] = str(tmp_path / 'emb.npy')
+        model = build_model(ModelConfig.resolve(fields), (5,))
+        assert model.dim > 0 and model.out_features == 2
