@@ -14,6 +14,15 @@ pipeline went through the kernels and streamed its draws to disk through
 the native C++ sample sink, and times the kernels (eagerly and replayed
 from a CUDA graph), the sampler and a profiled step.
 
+The main path's ``train()`` writes its report on the card: the smoke
+checks ``report.html``, ``diagnostics.csv`` and the wall times, and holds
+the report's per-parameter diagnostics on the card against the CPU's. The
+partition path (``configs/replicate_uci/partition_mclmc.yaml``: the
+energy PartitionFCN, 12 chains, dim 2,082 of which 178 are sampled, step
+counts cut as the main path's) runs K1 and K3 at (12, 178), and its checks
+hold the frozen coordinates of the warm start and of every draw bit for
+bit.
+
 The image path (``configs/additional_tasks/lenet_fmnist.yaml``: LeNet,
 10 chains, dim 61,706, 48,000 training images, likelihood chunks of 8192)
 runs through ``BDETrainer`` on a synthetic FashionMNIST-shaped archive made
@@ -77,14 +86,33 @@ K3_OPS_PER_ELEM = 25 + 7 + 1 + 2 + 2 + 1
 # an MCLMC step of the main path: the drifts, the sum of dK and dE are
 # fused into K1 and K3, 10 launches fewer than the 224 of the unfused step
 MAX_LAUNCHES_PER_STEP = 214
-TIMED_SHAPES = [(12, 674), (1, 674), (10, 61_706), (8, 65_248),
-                (2, 300_000)]
+TIMED_SHAPES = [(12, 674), (1, 674), (12, 178), (10, 61_706),
+                (8, 65_248), (2, 300_000)]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
        'training.sampler.warmup_steps': 200,
        'training.sampler.n_samples': 200,
        'training.sampler.n_thinning': 10}
+
+# The per-parameter diagnostics of the report, card against CPU on the
+# main path's draws: float32 FFTs and reductions in another order (the
+# ranks are the same: both sort stably), so each value within DIAG_RTOL
+# relative, with a floor of DIAG_ATOL of the largest value of its kind
+DIAG_RTOL, DIAG_ATOL = 1e-4, 1e-6
+
+# The partition path: configs/replicate_uci/partition_mclmc.yaml at full
+# width (energy, 537 training rows, PartitionFCN [16 x 8, 2] relu: dim
+# 2,082, of which layer0's 144 and layer8's 34 coordinates are sampled; 12
+# chains; the partition warm start; use_warmup_as_init). Cut in memory,
+# as CUT cuts the main path: the warm start to 20 epochs (of 500, patience
+# 10), the tuner to 200 steps (of 50,000), the sampling to 200 steps
+# thinned by 10 (of 10,000): 20 draws a chain.
+PARTITION_CONFIG = ROOT / 'configs' / 'replicate_uci' / 'partition_mclmc.yaml'
+PARTITION_RESULTS = ROOT / 'results' / 'chip_smoke_partition'
+PARTITION_SHAPE = (12, 178)
+PARTITION_DIM = 2_082
+PARTITION_CUT = CUT
 
 # The image path: LeNet on a synthetic archive of FashionMNIST's shape
 # (70,000 28x28 grey images in 10 classes, made from IMAGE_SEED) at the
@@ -516,17 +544,7 @@ class Smoke:
 
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        # BDETrainer.train() is these three phases, called one by one here
-        # to time each
-        t0 = time.perf_counter()
-        members = trainer.train_warmstart()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        result = trainer.start_sampling(members)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        metrics = trainer.evaluate(members, result)
-        t3 = time.perf_counter()
+        members, result, metrics, phase_s = self._train(trainer)
         self.launches = {'isokinetic_momentum': ops.isokinetic_momentum.launches,
                          'partial_refresh': ops.partial_refresh.launches}
         self.timings['main_path_peak_device_mib'] = \
@@ -554,8 +572,7 @@ class Smoke:
         n_sampled = n_kept * scfg.n_thinning
         rate = MAIN_SHAPE[0] * n_sampled / result.seconds['sampling']
         self.timings.update({
-            'main_path_s': {'warmstart': t1 - t0, 'warmup_and_sampling':
-                            t2 - t1, 'evaluation': t3 - t2,
+            'main_path_s': {**phase_s,
                             **{f'run_mclmc_{k}': v
                                for k, v in result.seconds.items()}},
             'main_path_mclmc_steps': n_steps,
@@ -564,6 +581,8 @@ class Smoke:
         print(f'  sampling phase of run_mclmc: {n_sampled} steps of '
               f'{MAIN_SHAPE[0]} chains in {result.seconds["sampling"]:.3f} s,'
               f' {rate:.0f} samples/s')
+        self._report_check('main', trainer)
+        self._diagnostics_check(trainer)
         self._sampling_rates(trainer, members, rate)
         t0 = time.perf_counter()
         trainer.train_warmstart()     # again, with the card warmed up
@@ -572,6 +591,116 @@ class Smoke:
             time.perf_counter() - t0
         self._agreement(trainer, result)
         self._profile(trainer, result)
+
+    def _train(self, trainer):
+        """``trainer.train()``, as a user calls it (report included), with
+        each phase timed and the members and the sampling result kept (the
+        trainer's phase methods are wrapped on the instance for the call).
+        Returns (members, result, metrics, seconds by phase; the report's is
+        the rest of train's wall time)."""
+        torch = self.torch
+        kept, seconds = {}, {}
+        phases = {'train_warmstart': 'warmstart',
+                  'start_sampling': 'warmup_and_sampling',
+                  'evaluate': 'evaluation'}
+
+        def wrap(name):
+            fn = getattr(trainer, name)
+
+            def timed(*args):
+                t0 = time.perf_counter()
+                kept[name] = fn(*args)
+                torch.cuda.synchronize()
+                seconds[phases[name]] = time.perf_counter() - t0
+                return kept[name]
+            setattr(trainer, name, timed)
+
+        for name in phases:
+            wrap(name)
+        try:
+            t0 = time.perf_counter()
+            metrics = trainer.train()
+            torch.cuda.synchronize()
+            seconds['report'] = (time.perf_counter() - t0
+                                 - sum(seconds.values()))
+        finally:
+            for name in phases:
+                vars(trainer).pop(name, None)
+        return (kept['train_warmstart'], kept['start_sampling'], metrics,
+                seconds)
+
+    def _report_check(self, key: str, trainer):
+        """The report that ``train()`` wrote, checked file by file (the
+        trainer logs a failed report and goes on, so a missing file would
+        not show otherwise): ``report.html`` with its wall-times, metrics
+        and per-layer diagnostics tables; ``diagnostics.csv`` with one row
+        per leaf of the flat layout under the JAX package's names and
+        finite ESS and split R-hat; ``time.warmstart`` and
+        ``time.sampling`` in ``training.log``, merged into
+        ``metrics.pkl``."""
+        import pickle
+
+        from mile_tpu_torch.inference.reporting import keystr, parse_times
+
+        exp = trainer.exp_dir
+        page = ((exp / 'report.html').read_text()
+                if (exp / 'report.html').exists() else '')
+        sections = ('Wall times', 'Metrics', 'Chain diagnostics (per layer)')
+        tables = all(f'<h2>{h}</h2><table' in page.replace('\n', '')
+                     for h in sections)
+        self.check(tables, f'{key}: report.html ({len(page)} bytes) holds '
+                           f'the {", ".join(sections)} tables; plots '
+                           f'{"embedded" if "<h2>Plots</h2>" in page else "absent (no matplotlib)"}')
+        rows = []
+        if (exp / 'diagnostics.csv').exists():
+            lines = (exp / 'diagnostics.csv').read_text().splitlines()
+            rows = [line.split(',') for line in lines[1:]]
+        names = [keystr(leaf.path) for leaf in trainer.model.layout.leaves]
+        finite = bool(rows) and all(
+            math.isfinite(float(r[1])) and math.isfinite(float(r[4]))
+            for r in rows)
+        self.check([r[0] for r in rows] == names and finite,
+                   f'{key}: diagnostics.csv has {len(rows)} rows, one per '
+                   f'leaf ({len(names)}: {names[0]}, ...), ESS and split '
+                   f'R-hat finite')
+        times = parse_times(exp / 'training.log')
+        with open(exp / 'metrics.pkl', 'rb') as f:
+            metrics = pickle.load(f)
+        merged = {k: metrics.get(k) for k in ('time.warmstart',
+                                              'time.sampling')}
+        self.check(all(k in times and merged[k] == times[k] for k in merged),
+                   f'{key}: training.log times {times}, merged into '
+                   f'metrics.pkl {merged}')
+
+    def _diagnostics_check(self, trainer):
+        """``per_param_diagnostics`` on the card against the same call on
+        the CPU, on the main path's draws: every value within DIAG_RTOL
+        relative (plus DIAG_ATOL of the largest value of its kind)."""
+        import numpy as np
+
+        from mile_tpu_torch.inference.reporting import per_param_diagnostics
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+
+        samples = load_flat_samples(trainer.samples_dir)
+        times, out = [], {}
+        for device in (self.dev, 'cpu', self.dev):
+            t0 = time.perf_counter()
+            out[str(device)] = per_param_diagnostics(samples, device=device)
+            times.append(1e3 * (time.perf_counter() - t0))
+        (card, coords), (cpu, cpu_coords) = out[str(self.dev)], out['cpu']
+        errors = {k: float(np.max(np.abs(card[k] - cpu[k])
+                                  / (np.abs(cpu[k]) + DIAG_ATOL
+                                     * np.abs(cpu[k]).max())))
+                  for k in cpu}
+        self.timings['diagnostics_check'] = {
+            'rel_err': errors, 'card_ms': times[2], 'cpu_ms': times[1],
+            'shape': list(samples.shape)}
+        self.check(np.array_equal(coords, cpu_coords)
+                   and max(errors.values()) <= DIAG_RTOL,
+                   f'per_param_diagnostics of the main path\'s draws '
+                   f'{samples.shape}, card vs CPU: max relative error by '
+                   f'kind {errors} (rtol {DIAG_RTOL:g}); card '
+                   f'{times[2]:.1f} ms, CPU {times[1]:.1f} ms')
 
     def _sink_check(self, trainer, n_kept: int):
         """The draws went to disk through the native C++ sink while
@@ -625,10 +754,12 @@ class Smoke:
               f'{statistics.median(rates):.0f} samples/s, min '
               f'{min(rates):.0f}, max {max(rates):.0f}')
 
-    def _kernel(self, trainer, result, device, dtype, normals):
+    def _kernel(self, trainer, result, device, dtype, normals,
+                subspace=None):
         """The main path's tuned MCLMC kernel on ``device`` in ``dtype``,
         fed the injected normals ``(C, dim)`` one per step (None: its own
-        Philox noise, as in the main path). Returns
+        Philox noise, as in the main path); with ``subspace`` (the sampled
+        mask and the members), the partitioned density's kernel. Returns
         ``(start, step, logdensity_and_grad)``: ``start(state)`` is a
         fresh state at another state's position and momentum,
         ``step(state)`` one step."""
@@ -641,6 +772,14 @@ class Smoke:
                                        else None)
                 for a in trainer.loader.numpy_arrays('train'))
         vg = trainer.bayes.logdensity_and_grad_fn(x, y)
+        if subspace is not None:
+            from mile_tpu_torch.bayes import partition as part
+            from mile_tpu_torch.bayes.posterior import value_and_grad
+
+            mask, members = subspace
+            vg = value_and_grad(part.make_partitioned_logdensity(
+                trainer.bayes.logdensity_fn(x, y), mask,
+                members.to(device, dtype)))
         kernel = mclmc.build_kernel(
             vg, torch.Generator().manual_seed(0), integrator=scfg.integrator,
             noise=None if normals is None else iter(
@@ -840,6 +979,152 @@ Step by step: each card step is held against the same step taken on
                    f'{per_step:g} kernel launches per bare MCLMC step '
                    f'(<= {MAX_LAUNCHES_PER_STEP})')
 
+    # --------------------------------------------------- partition path
+    @contextlib.contextmanager
+    def _launch_shapes(self):
+        """The shapes of the momenta that K1's and K3's wrappers are called
+        with, recorded on the way through (the wrappers still count their
+        own launches)."""
+        from mile_tpu_torch.mcmc import integrators, mclmc
+
+        shapes = set()
+        saved = integrators.isokinetic_momentum, mclmc.partial_refresh
+
+        def spy(fn):
+            def call(u, *args, **kwargs):
+                shapes.add((fn.__name__, tuple(u.shape)))
+                return fn(u, *args, **kwargs)
+            return call
+
+        integrators.isokinetic_momentum, mclmc.partial_refresh = map(spy,
+                                                                     saved)
+        try:
+            yield shapes
+        finally:
+            integrators.isokinetic_momentum, mclmc.partial_refresh = saved
+
+    def partition_path(self):
+        """BDETrainer.train() on partition_mclmc.yaml at full width, step
+        counts cut to PARTITION_CUT, report included: K1 and K3 launched
+        3 and 1 times a step at PARTITION_SHAPE; finite metrics; every
+        hidden coordinate of every draw on disk equal to its warm-start
+        member's, and every hidden coordinate of the members equal to its
+        initial value, bit for bit; the report's files; one partitioned
+        step kernels vs plain versions on the card; the partitioned value
+        and gradient card vs CPU in float32."""
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.bayes import partition as part
+        from mile_tpu_torch.bayes.posterior import value_and_grad
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+        from mile_tpu_torch.train.trainer import BDETrainer
+        from mile_tpu_torch.utils.keys import experiment_keys
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        (config,) = Config.from_file(PARTITION_CONFIG)
+        config = config.replace(saving_dir=str(PARTITION_RESULTS.parent),
+                                experiment_name=PARTITION_RESULTS.name,
+                                **PARTITION_CUT)
+        scfg = config.training.sampler
+        shutil.rmtree(PARTITION_RESULTS, ignore_errors=True)
+        trainer = BDETrainer(config, device=self.dev)
+        mask = trainer.sampled_mask()
+        n_chains, d = PARTITION_SHAPE
+        n_train = trainer.loader.arrays('train')[0].shape[0]
+        groups = part.layer_groups(trainer.model.layout)
+        self.check(trainer.bayes.dim == PARTITION_DIM
+                   and scfg.n_chains == n_chains and int(mask.sum()) == d
+                   and config.training.warmstart.partition_warmstart
+                   and scfg.use_warmup_as_init,
+                   f'partition at full width: {config.model.model} dim '
+                   f'{trainer.bayes.dim}, {int(mask.sum())} sampled '
+                   f'({groups[0][0]} and {groups[-1][0]}), '
+                   f'{scfg.n_chains} chains, {n_train} training rows')
+
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with self._launch_shapes() as shapes:
+            members, result, metrics, phase_s = self._train(trainer)
+        launches = {'isokinetic_momentum': ops.isokinetic_momentum.launches,
+                    'partial_refresh': ops.partial_refresh.launches}
+        self.path_launches['partition'] = launches
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        n_sampled = n_kept * scfg.n_thinning
+        n_steps = scfg.warmup_steps + n_sampled
+        self.check(launches['isokinetic_momentum'] == 3 * n_steps
+                   and launches['partial_refresh'] == n_steps
+                   and {shape for _, shape in shapes} == {PARTITION_SHAPE},
+                   f'launches in the partition path: K1 '
+                   f'{launches["isokinetic_momentum"]} (3 x {n_steps} MCLMC '
+                   f'steps), K3 {launches["partial_refresh"]} (1 x '
+                   f'{n_steps}), at {sorted(shapes)}')
+        values = {k: float(metrics[k]) for k in
+                  ('lppd', 'nll', 'rmse', 'cal_error', 'de_lppd', 'de_rmse')}
+        self.check(all(math.isfinite(v) for v in values.values()),
+                   f'partition metrics finite: {values}')
+
+        samples = load_flat_samples(trainer.samples_dir)
+        host = members.cpu().numpy()
+        init = trainer.model.init(
+            n_chains, experiment_keys(config.rng).train).numpy()
+        hidden = ~mask
+        self.check(samples.shape == (n_chains, n_kept, PARTITION_DIM)
+                   and bool(np.isfinite(samples).all())
+                   and np.array_equal(samples[:, :, hidden],
+                                      np.broadcast_to(host[:, None, hidden],
+                                                      samples[:, :, hidden]
+                                                      .shape)),
+                   f'partition draws on disk {samples.shape}, finite; the '
+                   f'{int(hidden.sum())} hidden coordinates of every draw '
+                   f'equal their warm-start member\'s bit for bit')
+        moved = float(np.abs(host[:, mask] - init[:, mask]).max())
+        self.check(np.array_equal(host[:, hidden], init[:, hidden])
+                   and moved > 0,
+                   f'the partition warm start left the hidden coordinates '
+                   f'at their initial values bit for bit (the sampled ones '
+                   f'moved up to {moved:.3g})')
+        self._report_check('partition', trainer)
+
+        subspace = (mask, members)
+        self._step_check('partition', 'partition', trainer, result,
+                         PARTITION_SHAPE, subspace)
+        x, y = trainer.loader.numpy_arrays('train')
+        theta = result.final_state.position
+        runs = {}
+        for run, device in (('card', self.dev), ('cpu', 'cpu')):
+            density = trainer.bayes.logdensity_fn(
+                torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+            vg = value_and_grad(part.make_partitioned_logdensity(
+                density, mask, members.to(device)))
+            with matmul_precision('float32'):
+                runs[run] = [a.cpu() for a in vg(theta.to(device))]
+        (v, g), (rv, rg) = runs['card'], runs['cpu']
+        value_rel = float(((v - rv).abs() / rv.abs()).max())
+        grad_rel = float((g - rg).abs().max() / rg.abs().max())
+        self.check(tuple(g.shape) == PARTITION_SHAPE
+                   and value_rel <= GRAD_RTOL and grad_rel <= GRAD_GTOL,
+                   f'partitioned log-density at the final state on all '
+                   f'{x.shape[0]} rows, card vs CPU in float32: value rel '
+                   f'{value_rel:.1e} (rtol {GRAD_RTOL:g}), gradient '
+                   f'{tuple(g.shape)} {grad_rel:.1e} max|g| (atol '
+                   f'{GRAD_GTOL:g} max|g|)')
+        rate = n_chains * n_sampled / result.seconds['sampling']
+        self.timings['partition'] = {
+            'phase_s': {**phase_s, 'tuner': result.seconds['warmup'],
+                        'sampling': result.seconds['sampling']},
+            'mclmc_steps': n_steps, 'chain_steps_per_s': rate,
+            'metrics': values, 'gradient_check': {'value_rel': value_rel,
+                                                  'grad_over_max': grad_rel},
+            'peak_device_mib': torch.cuda.max_memory_allocated() / 2 ** 20}
+        print(f'  partition phases (s): '
+              f'{json.dumps(self.timings["partition"]["phase_s"])}; sampling '
+              f'{n_sampled} steps of {n_chains} chains: {rate:.0f} '
+              f'chain-steps/s')
+
     # ------------------------------------------------------- image path
     def _image_archive(self):
         """A FashionMNIST-shaped archive: 70,000 28x28 uint8 images, labels
@@ -986,7 +1271,8 @@ Step by step: each card step is held against the same step taken on
         finally:
             integrators.isokinetic_momentum, mclmc.partial_refresh = saved
 
-    def _step_check(self, key, label, trainer, result, shape):
+    def _step_check(self, key, label, trainer, result, shape,
+                    subspace=None):
         """One MCLMC step on the card from the path's final state with the
         same injected normals, through the kernels and through the plain
         versions (both under the sampler's matmul precision): positions
@@ -1001,7 +1287,7 @@ Step by step: each card step is held against the same step taken on
         out = {}
         for kind in ('kernels', 'plain'):
             start, step, _ = self._kernel(trainer, result, self.dev,
-                                          torch.float32, [z])
+                                          torch.float32, [z], subspace)
             with contextlib.ExitStack() as stack:
                 if kind == 'plain':
                     stack.enter_context(self._plain_ops())
@@ -1642,6 +1928,8 @@ def main() -> int:
                     smoke.k3)
         smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim 674',
                     smoke.main_path)
+        smoke.phase('partition path: BDETrainer on energy PartitionFCN, 12 '
+                    'chains, dim 2,082, subspace 178', smoke.partition_path)
         smoke.phase('image path: BDETrainer on LeNet, 10 chains, dim 61,706',
                     smoke.image_path)
         smoke.phase('text path: BDETrainer on AttentionClassifier, 8 chains, '
@@ -1674,7 +1962,7 @@ def main() -> int:
             'name': name, 'route': 'cuda',
             'source': f'mile_tpu_torch/csrc/isokinetic.cu ({source_fn})',
             'replaces': replaces,
-            # the airfoil, image and text paths
+            # the airfoil, partition, image and text paths
             'launches': smoke.launches.get(name, 0) + sum(
                 path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,

@@ -3,6 +3,10 @@
     python -m mile_tpu_torch -c configs/illustrative_airfoil_mclmc.yaml
     python -m mile_tpu_torch -c configs/illustrative_airfoil_nuts.yaml
     python -m mile_tpu_torch -c configs/debug.yaml --device cpu
+    python -m mile_tpu_torch -c configs/ablations/partition_airfoil.yaml
+
+Each experiment ends with its report (``report.html``, ``diagnostics.csv``)
+unless ``--no_report`` is given.
 
 Runs on the GPU unless ``--device cpu`` is given; without a CUDA device
 and without that flag it fails rather than run on the CPU.
@@ -31,6 +35,8 @@ def main(argv=None) -> int:
                         help='number of devices (only 1 is ported so far)')
     parser.add_argument('--silent', action='store_true',
                         help='disable console logging')
+    parser.add_argument('--no_report', action='store_true',
+                        help='skip report generation')
     args = parser.parse_args(argv)
 
     from mile_tpu_torch.config import Config
@@ -50,7 +56,8 @@ def main(argv=None) -> int:
                    for v in c.expand_grid_from_path(args.search_tree)]
     logging.info('running %d experiment(s)', len(configs))
     for cfg in configs:
-        metrics = BDETrainer(cfg, device=args.device).train()
+        metrics = BDETrainer(cfg, device=args.device).train(
+            report=not args.no_report)
         logging.info('experiment %s finished: %s', cfg.experiment_name,
                      {k: v for k, v in metrics.items()
                       if isinstance(v, (int, float))})

@@ -1,4 +1,21 @@
-"""Exceptions of the port."""
+"""Exceptions of the port: the JAX package's own (a copy of
+``mile_tpu/exceptions.py``) and :class:`NotYetPortedError`."""
+
+
+class MileTPUError(Exception):
+    """Base class for framework errors."""
+
+
+class MissingConfigError(MileTPUError):
+    """A required configuration file or field is absent."""
+
+
+class ModelNotFoundError(MileTPUError):
+    """The configured model name is not in the registry."""
+
+
+class SamplerNotImplementedError(MileTPUError):
+    """The configured sampling mode is not supported."""
 
 
 class NotYetPortedError(NotImplementedError):

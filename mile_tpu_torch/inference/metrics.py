@@ -124,11 +124,16 @@ def within_chain_var(x: torch.Tensor) -> torch.Tensor:
 
 def rank_normalize(x: torch.Tensor) -> torch.Tensor:
     """Rank-normalize over the pooled (chain, sample) axes (Vehtari et al.
-    2021, fractional offset 3/8): same shape, values ~ N(0, 1) ranks."""
+    2021, fractional offset 3/8): same shape, values ~ N(0, 1) ranks.
+
+    Ties rank in flat (chain-major) order, as ``jnp.argsort``'s stable
+    sort ranks them: a coordinate held constant (a frozen partition
+    layer) gets the same ranks on the CPU, on the card and in JAX."""
     shape = x.shape
     flat = x.reshape(-1, *shape[2:])
     n = flat.shape[0]
-    ranks = torch.argsort(torch.argsort(flat, dim=0), dim=0) + 1.0
+    order = torch.argsort(flat, dim=0, stable=True)
+    ranks = torch.argsort(order, dim=0) + 1.0
     return torch.special.ndtri((ranks - 0.375) / (n + 0.25)).reshape(shape)
 
 
@@ -165,3 +170,11 @@ def gelman_split_r_hat(samples: torch.Tensor, n_splits: int,
     wcv = within_chain_var(splits)
     bcv = between_chain_var(splits)
     return torch.sqrt(((m - 1.0) / m * wcv + bcv) / wcv)
+
+
+def split_chain_r_hat(samples: torch.Tensor, n_splits: int,
+                      rank_normalized: bool = True) -> torch.Tensor:
+    """Per-chain split R-hat: (n_chains, ...)."""
+    return torch.stack([
+        gelman_split_r_hat(chain[None], n_splits, rank_normalized)
+        for chain in samples])

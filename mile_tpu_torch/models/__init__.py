@@ -1,5 +1,5 @@
-"""Models (counterpart of ``mile_tpu.models``: the FCN, the CNNs and the
-attention classifiers)."""
+"""Models (counterpart of ``mile_tpu.models``: the FCN and PartitionFCN, the
+CNNs and the attention classifiers)."""
 from __future__ import annotations
 
 from mile_tpu_torch.config.models import ModelConfig
@@ -9,7 +9,7 @@ from mile_tpu_torch.models.attention import (  # noqa: F401
     PretrainedAttentionClassifier,
 )
 from mile_tpu_torch.models.cnn import LeNet, LeNetti  # noqa: F401
-from mile_tpu_torch.models.fcn import FCN  # noqa: F401
+from mile_tpu_torch.models.fcn import FCN, PartitionFCN  # noqa: F401
 from mile_tpu_torch.models.layout import (  # noqa: F401
     FlatLayout,
     flat_from_jax_params,
@@ -18,6 +18,7 @@ from mile_tpu_torch.models.layout import (  # noqa: F401
 
 MODEL_REGISTRY = {
     'FCN': FCN,
+    'PartitionFCN': PartitionFCN,
     'LeNet': LeNet,
     'LeNetti': LeNetti,
     'AttentionClassifier': AttentionClassifier,
@@ -32,14 +33,14 @@ def build_model(config: ModelConfig, input_shape: int | tuple[int, ...]):
     for the CNNs, ``(context_len,)`` token ids for the text models
     (``(T, F)`` embeddings for ``EmbeddingClassifier``)."""
     if config.model not in MODEL_REGISTRY:
-        from mile_tpu_torch.exceptions import NotYetPortedError
-
-        raise NotYetPortedError(f'the {config.model} model')
+        raise KeyError(f'unknown model {config.model!r}; options: '
+                       f'{sorted(MODEL_REGISTRY)}')
     if isinstance(input_shape, int):
         input_shape = (input_shape,)
-    if config.model == 'FCN':
+    cls = MODEL_REGISTRY[config.model]
+    if issubclass(cls, FCN):
         if len(input_shape) != 1:
-            raise ValueError(f'FCN needs flat features, got input shape '
-                             f'{tuple(input_shape)}')
-        return FCN(config, input_shape[0])
-    return MODEL_REGISTRY[config.model](config, tuple(input_shape))
+            raise ValueError(f'{config.model} needs flat features, got '
+                             f'input shape {tuple(input_shape)}')
+        return cls(config, input_shape[0])
+    return cls(config, tuple(input_shape))

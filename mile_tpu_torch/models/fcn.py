@@ -52,3 +52,8 @@ class FCN(nn.Module):
         """``n`` fresh members ``(n, dim)``, initialized as flax's Dense."""
         return init_flat(self.layout, self.fcn.param_inits(self.scope), n,
                          generator)
+
+
+class PartitionFCN(FCN):
+    """FCN variant used with partition warm start and sampling (same
+    forward)."""

@@ -52,6 +52,22 @@ class FlatLayout:
     def __getitem__(self, path: str) -> Leaf:
         return self._by_path[path]
 
+    @classmethod
+    def from_json(cls, data: Mapping) -> 'FlatLayout':
+        """The inverse of :meth:`to_json`."""
+        shapes: dict = {}
+        for leaf in data['leaves']:
+            *parents, name = leaf['path'].split('/')
+            node = shapes
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[name] = tuple(leaf['shape'])
+        layout = cls(shapes)
+        if layout.dim != data['dim']:
+            raise ValueError(f'layout leaves sum to {layout.dim}, the file '
+                             f'says {data["dim"]}')
+        return layout
+
     def to_json(self) -> dict:
         return {'dim': self.dim,
                 'leaves': [{'path': leaf.path, 'shape': list(leaf.shape)}

@@ -11,6 +11,9 @@
 - ``warmup_params.txt`` (MCLMC only): tuned step sizes and Ls, one line
   each.
 
+Members and draws are read back as flat numpy arrays in the same layout
+(:func:`load_params`, :func:`load_params_batch`, :func:`load_flat_samples`).
+
 The JAX package pickles its treedef beside these (a JAX object). The port
 writes ``layout.json`` instead: the leaf paths and shapes of the flat
 layout (a deliberate divergence, recorded in ROADMAP.md).
@@ -42,6 +45,30 @@ def save_params(path: str | Path, flat: np.ndarray, layout: FlatLayout,
     np.savez_compressed(path / f'params_{chain_id}.npz',
                         **{f'leaf_{i}': leaf for i, leaf in enumerate(leaves)})
     save_layout(path, layout)
+
+
+def load_layout(path: str | Path) -> FlatLayout:
+    return FlatLayout.from_json(json.loads((Path(path) / LAYOUT_FILE)
+                                           .read_text()))
+
+
+def load_params(path: str | Path, chain_id: int) -> np.ndarray:
+    """One member's flat (dim,) parameters from ``params_{chain}.npz``:
+    its ``leaf_{k}`` entries, in JAX leaf order, are the flat layout's
+    consecutive slices."""
+    with np.load(Path(path) / f'params_{chain_id}.npz') as data:
+        return np.concatenate([data[f'leaf_{i}'].reshape(-1)
+                               for i in range(len(data.files))])
+
+
+def load_params_batch(path: str | Path, chain_ids) -> np.ndarray:
+    """N member checkpoints stacked on a leading chain axis: (N, dim)."""
+    return np.stack([load_params(path, i) for i in chain_ids])
+
+
+def list_checkpoints(path: str | Path) -> list[int]:
+    return sorted(
+        int(p.stem.split('_')[1]) for p in Path(path).glob('params_*.npz'))
 
 
 def save_chain_samples(path: str | Path, chain_id: int,
@@ -84,3 +111,10 @@ def save_warmup_params(path: str | Path, step_size, L) -> None:
     with open(path, 'w') as f:
         f.write(','.join(str(s) for s in step_size) + '\n')
         f.write(','.join(str(s) for s in L) + '\n')
+
+
+def load_warmup_params(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
+    with open(path) as f:
+        lines = f.read().strip().split('\n')
+    return (np.array([float(v) for v in lines[0].split(',')]),
+            np.array([float(v) for v in lines[1].split(',')]))

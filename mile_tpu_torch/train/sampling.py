@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from mile_tpu_torch.config.training import Sampler, SamplerConfig
-from mile_tpu_torch.exceptions import NotYetPortedError
+from mile_tpu_torch.exceptions import SamplerNotImplementedError
 from mile_tpu_torch.mcmc import mclmc
 from mile_tpu_torch.mcmc.adaptation.mclmc_tuning import (
     TuningConfig,
@@ -32,6 +32,8 @@ from mile_tpu_torch.utils.precision import matmul_precision
 logger = logging.getLogger(__name__)
 
 MAX_KEPT_WARMUP = 1000  # cap on stored warmup positions per chain
+EPOCH_WISE_MESSAGE = ('epoch_wise (mini-batch) sampling is not supported; '
+                      'the posterior is full-batch by design')
 
 
 class SamplingResult(NamedTuple):
@@ -220,7 +222,8 @@ def run_sampler(logdensity_and_grad: Callable, cfg: SamplerConfig,
                 **kwargs) -> SamplingResult:
     """Dispatch on the configured sampling algorithm."""
     if cfg.epoch_wise_sampling:
-        raise NotYetPortedError('epoch-wise (mini-batch) sampling')
+        # reserved in the JAX package too
+        raise SamplerNotImplementedError(EPOCH_WISE_MESSAGE)
     if cfg.name == Sampler.MCLMC:
         return run_mclmc(logdensity_and_grad, cfg, generator, init_positions,
                          **kwargs)

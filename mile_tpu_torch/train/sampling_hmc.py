@@ -3,9 +3,12 @@
 
 All chains advance together as one ``(C, dim)`` batch; draws are buffered
 on the device per chunk and copied to the host while the next chunk
-computes, as in :func:`mile_tpu_torch.train.sampling.run_mclmc`. Resume,
-the device mesh and per-chain auxiliary data (partition sampling) are not
-ported yet: the trainer refuses the configs that ask for them.
+computes, as in :func:`mile_tpu_torch.train.sampling.run_mclmc`. Partition
+sampling needs no per-chain auxiliary argument here: its density closes
+over every chain's frozen base (:mod:`mile_tpu_torch.bayes.partition`), so
+the adaptation, the re-init and every step see the subspace. Resume and
+the device mesh are not ported yet: the trainer refuses the configs that
+ask for them.
 """
 from __future__ import annotations
 

@@ -1,16 +1,18 @@
-"""Experiment orchestrator: warmstart -> sampling -> evaluation
+"""Experiment orchestrator: warmstart -> sampling -> evaluation -> report
 (counterpart of ``mile_tpu/train/trainer.py::BDETrainer``, with MCLMC,
 NUTS or HMC on one device).
 
 Draws stream to disk while sampling runs, through the native sink
 (``samples/chain_{c}/samples.bin``); where it cannot be built the trainer
 writes ``samples.npy`` at the end instead, as the JAX trainer does.
+Partition and frozen sampling run in the subspace of the sampled
+coordinates, with each chain's warm-start member as its frozen base, and
+save their draws merged back to full dimension at the end.
 
 Features of the JAX trainer that the port does not have yet raise
 :class:`~mile_tpu_torch.exceptions.NotYetPortedError` when a config asks
-for them: partition or frozen sampling, mid-chain resume, orbax
-checkpoints, per-draw streaming, profiling, warmstart reuse, report
-rendering, and more than one device.
+for them: mid-chain resume, orbax checkpoints, per-draw streaming,
+warmstart reuse, data sharding and more than one device.
 """
 from __future__ import annotations
 
@@ -18,19 +20,30 @@ import logging
 import pickle
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mile_tpu_torch.bayes import BayesianModel
+from mile_tpu_torch.bayes import partition as part
+from mile_tpu_torch.bayes.posterior import value_and_grad
 from mile_tpu_torch.config import Config, Sampler, Task
 from mile_tpu_torch.data import build_loader
-from mile_tpu_torch.exceptions import NotYetPortedError
+from mile_tpu_torch.exceptions import (
+    NotYetPortedError,
+    SamplerNotImplementedError,
+)
 from mile_tpu_torch.inference.evaluation import evaluate_bde, evaluate_de
 from mile_tpu_torch.native import NativeSampleSink, native_available
 from mile_tpu_torch.train import checkpoint as ckpt
-from mile_tpu_torch.train.sampling import SamplingResult, run_sampler
+from mile_tpu_torch.train.sampling import (
+    EPOCH_WISE_MESSAGE,
+    SamplingResult,
+    run_sampler,
+)
 from mile_tpu_torch.train.warmstart import train_ensemble
 from mile_tpu_torch.utils.device import resolve_device
 from mile_tpu_torch.utils.keys import experiment_keys
+from mile_tpu_torch.utils.timing import measure_time
 
 logger = logging.getLogger(__name__)
 
@@ -38,21 +51,18 @@ NOMINAL_COVERAGES = [0.5, 0.75, 0.9, 0.95]
 
 
 def check_supported(config: Config) -> None:
-    """Raise for the config options this slice of the port lacks."""
+    """Raise for the config options the port lacks, and for epoch-wise
+    sampling, which the JAX package lacks too."""
     scfg = config.training.sampler
-    wcfg = config.training.warmstart
+    if scfg.epoch_wise_sampling:
+        raise SamplerNotImplementedError(EPOCH_WISE_MESSAGE)
     unported = [
-        (scfg.epoch_wise_sampling, 'epoch-wise (mini-batch) sampling'),
-        (scfg.partition_sampling or bool(scfg.params_frozen),
-         'partition / frozen-parameter sampling'),
         (scfg.checkpoint_sampling, 'mid-chain resume (checkpoint_sampling)'),
         (scfg.stream_samples, 'per-draw sample streaming (stream_samples)'),
         (scfg.data_sharding > 1, 'data-axis sharding (data_sharding > 1)'),
         (config.training.checkpoint_format != 'npz', 'orbax checkpoints'),
-        (config.profile, 'profiling (profile: true)'),
-        (wcfg.warmstart_exp_dir is not None,
+        (config.training.warmstart.warmstart_exp_dir is not None,
          'warmstart reuse (warmstart_exp_dir)'),
-        (wcfg.partition_warmstart, 'partition warmstart'),
     ]
     for unsupported, feature in unported:
         if unsupported:
@@ -117,37 +127,72 @@ class BDETrainer:
     def train_warmstart(self) -> torch.Tensor:
         """Deep-ensemble pre-training: flat members (n_chains, dim)."""
         cfg = self.config.training.warmstart
-        if cfg.include:
-            params, store = train_ensemble(
-                self.model, self.loader, cfg, self.config.data.task,
-                self.n_chains, self._gen_train)
-            store.save(self.warmstart_dir / 'metrics.pkl')
-        else:
-            logger.info('warmstart disabled; sampling from fresh inits')
-            params = self.model.init(self.n_chains,
-                                     self._gen_train).to(self.device)
+        with measure_time('time.warmstart'):
+            if cfg.include:
+                params, store = train_ensemble(
+                    self.model, self.loader, cfg, self.config.data.task,
+                    self.n_chains, self._gen_train)
+                store.save(self.warmstart_dir / 'metrics.pkl')
+                try:
+                    from mile_tpu_torch.viz import plot_warmstart_results
+
+                    plot_warmstart_results(store).savefig(
+                        self.warmstart_dir / 'warmstart_curves.png')
+                except Exception:
+                    logger.exception('warmstart plot failed')
+            else:
+                logger.info('warmstart disabled; sampling from fresh inits')
+                params = self.model.init(self.n_chains,
+                                         self._gen_train).to(self.device)
         host = params.cpu().numpy()
         for i in range(self.n_chains):
             ckpt.save_params(self.warmstart_dir, host[i], self.model.layout, i)
         return params
 
+    def sampled_mask(self) -> np.ndarray | None:
+        """The coordinates partition or frozen sampling samples (True),
+        None when every coordinate is sampled: ``params_frozen`` freezes
+        the groups it names, ``partition_sampling`` samples the first and
+        last layer groups."""
+        scfg = self.config.training.sampler
+        if scfg.params_frozen:
+            return part.frozen_mask(self.model.layout, scfg.params_frozen)
+        if scfg.partition_sampling:
+            return part.partition_mask(self.model.layout)
+        return None
+
     def start_sampling(self, member_params: torch.Tensor) -> SamplingResult:
         """Run the configured sampler from the ensemble members' weights,
         persisting the draws chunk by chunk through the native sink (the
-        sink is kept as ``self.sink``)."""
+        sink is kept as ``self.sink``). Partition and frozen sampling run
+        in the subspace, without the sink, and save the draws merged back
+        to full dimension at the end."""
         scfg = self.config.training.sampler
         x, y = self.loader.arrays('train')
+        mask = self.sampled_mask()
         self.sink = None
-        if native_available():
+        if mask is None and native_available():
             self.sink = NativeSampleSink(self.samples_dir, self.n_chains,
                                          self.bayes.dim)
-        try:
-            result = run_sampler(self.bayes.logdensity_and_grad_fn(x, y),
-                                 scfg, self._gen_sample, member_params,
-                                 sample_sink=self.sink)
-        finally:
-            if self.sink is not None:
-                self.sink.close()   # drain the writer queue; files complete
+        with measure_time('time.sampling'):
+            if mask is not None:
+                logger.info('partition sampling: %d of %d coords sampled',
+                            int(mask.sum()), self.bayes.dim)
+                vg = value_and_grad(part.make_partitioned_logdensity(
+                    self.bayes.logdensity_fn(x, y), mask, member_params))
+                result = run_sampler(vg, scfg, self._gen_sample,
+                                     part.split(member_params, mask))
+                result = result._replace(samples=part.merge(
+                    member_params.cpu().numpy(), result.samples, mask))
+            else:
+                try:
+                    result = run_sampler(
+                        self.bayes.logdensity_and_grad_fn(x, y), scfg,
+                        self._gen_sample, member_params,
+                        sample_sink=self.sink)
+                finally:
+                    if self.sink is not None:
+                        self.sink.close()   # drain the writer queue
         if self.sink is None:
             ckpt.save_samples(self.samples_dir, result.samples)
         ckpt.save_layout(self.samples_dir, self.model.layout)
@@ -189,9 +234,52 @@ class BDETrainer:
             pickle.dump(metrics, f)
         return metrics
 
-    def train(self, report: bool = False) -> dict:
+    def _start_profiler(self):
+        """A ``torch.profiler`` session over the warm start and sampling
+        (the card's kernels too on a CUDA device), or None if it cannot
+        start."""
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(ProfilerActivity.CUDA)
+            profiler = profile(activities=activities)
+            profiler.start()
+            return profiler
+        except Exception:   # profiling must never kill a run
+            logger.exception('could not start the torch profiler')
+            return None
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop ``profiler`` and write its Chrome trace (TensorBoard and
+        Perfetto read it) to ``profile/trace.json``."""
+        try:
+            profiler.stop()
+            out = self.exp_dir / 'profile'
+            out.mkdir(parents=True, exist_ok=True)
+            profiler.export_chrome_trace(str(out / 'trace.json'))
+            logger.info('torch profile written to %s', out)
+        except Exception:
+            logger.exception('could not write the torch profile')
+
+    def train(self, report: bool = True) -> dict:
+        """Warm start, sampling (under the profiler with ``profile:
+        true``), evaluation, then the report (``report.html`` and
+        ``diagnostics.csv``; a failed report is logged, not raised)."""
+        profiler = self._start_profiler() if self.config.profile else None
+        try:
+            member_params = self.train_warmstart()
+            result = self.start_sampling(member_params)
+        finally:
+            if profiler is not None:
+                self._stop_profiler(profiler)
+        metrics = self.evaluate(member_params, result)
         if report:
-            raise NotYetPortedError('report generation')
-        member_params = self.train_warmstart()
-        result = self.start_sampling(member_params)
-        return self.evaluate(member_params, result)
+            try:
+                from mile_tpu_torch.inference.reporting import generate_report
+
+                generate_report(self.exp_dir, self.config, self.device)
+            except Exception:   # report failures must not kill the run
+                logger.exception('report generation failed')
+        return metrics

@@ -11,6 +11,13 @@ step's own (pre-update) forward pass; validation metrics per epoch.
 Early stopping is per member (``earlystop_mask`` semantics): a stopped
 member's parameters and optimizer state stay as they were.
 
+The partition warm start (``partition_warmstart``) trains the first and
+last layer groups only, as the JAX package's ``optax.multi_transform``
+with ``set_to_zero`` on the hidden groups does: their gradient is zeroed,
+so their optimizer moments stay 0, and their values are put back after
+each step, so that AdamW's decoupled weight decay does not move them
+either. The hidden coordinates keep their initial values bit for bit.
+
 Image members take their own batches ``(M, B, C, H, W)``, text members
 their token batches ``(M, B, T)``. The validation and test forwards are
 chunked over observations by the evaluation's planner, since unchunked
@@ -94,17 +101,22 @@ def earlystop_mask(losses: np.ndarray, patience: int | None) -> np.ndarray:
 
 # ---------------------------------------------------------------- training
 def member_step(model, flat: torch.Tensor, optimizer, loss_fn, metrics_fn,
-                x_all, y_all, rows: torch.Tensor,
-                stopped: np.ndarray) -> dict:
+                x_all, y_all, rows: torch.Tensor, stopped: np.ndarray,
+                frozen: torch.Tensor | None = None) -> dict:
     """One optimizer step of every member on its batch ``rows`` (M, B).
 
     Members flagged in ``stopped`` keep their parameters and optimizer
-    state. Returns the step's per-member metrics (NaN where stopped).
+    state; the coordinates indexed by ``frozen`` keep their values in
+    every member. Returns the step's per-member metrics (NaN where
+    stopped).
     """
     x, y = x_all[rows], y_all[rows]          # (M, B, *input_shape), (M, B)
     optimizer.zero_grad(set_to_none=True)
     lvals = model(flat, x)
     loss_fn(lvals, y).sum().backward()
+    if frozen is not None:
+        flat.grad[:, frozen] = 0.0
+        held = flat.detach()[:, frozen]
     keep = None
     if stopped.any():
         keep = torch.as_tensor(stopped, device=flat.device)
@@ -113,6 +125,8 @@ def member_step(model, flat: torch.Tensor, optimizer, loss_fn, metrics_fn,
             v.clone() for v in state.values()
             if torch.is_tensor(v) and v.shape == flat.shape]
     optimizer.step()
+    if frozen is not None:
+        flat.data[:, frozen] = held
     if keep is not None:
         current = [flat.data] + [
             v for v in optimizer.state[flat].values()
@@ -142,10 +156,6 @@ def train_ensemble(model, loader, config: WarmstartConfig, task: Task,
                    ) -> tuple[torch.Tensor, MetricsStore]:
     """Train ``n_members`` networks; returns (flat params (M, dim) on the
     loader's device, metrics)."""
-    if config.partition_warmstart:
-        from mile_tpu_torch.exceptions import NotYetPortedError
-
-        raise NotYetPortedError('partition warmstart')
     with matmul_precision('float32'):
         return _train_ensemble(model, loader, config, task, n_members,
                                generator, init)
@@ -160,6 +170,12 @@ def _train_ensemble(model, loader, config, task, n_members, generator,
         init = model.init(n_members, generator)
     flat = init.to(device).clone().requires_grad_(True)
     optimizer = config.optimizer_config.build([flat])
+    frozen = None
+    if config.partition_warmstart:
+        from mile_tpu_torch.bayes.partition import partition_mask
+
+        frozen = torch.as_tensor(np.nonzero(~partition_mask(model.layout))[0],
+                                 device=device)
 
     x_valid, y_valid = loader.arrays('valid')
     has_valid = x_valid.shape[0] > 0
@@ -180,7 +196,7 @@ def _train_ensemble(model, loader, config, task, n_members, generator,
         for b in range(n_batches):
             train_hist.append(member_step(
                 model, flat, optimizer, loss_fn, metrics_fn, x_all, y_all,
-                plan[:, b], stopped))
+                plan[:, b], stopped, frozen))
         if has_valid:
             valid_hist.append(metrics_fn(
                 predict_from_flat(model, flat.detach(), x_valid), y_valid))

@@ -164,7 +164,7 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize('update', [
     {'training.sampler.stream_samples': True},
-    {'training.sampler.partition_sampling': True},
+    {'training.sampler.data_sharding': 2},
     {'training.sampler.checkpoint_sampling': True},
     {'training.checkpoint_format': 'orbax'},
     {'training.warmstart.warmstart_exp_dir': 'elsewhere'},
@@ -179,9 +179,13 @@ def test_features_not_yet_ported_raise(update, tmp_path):
         BDETrainer(config, device='cpu')
 
 
-def test_more_than_one_device_and_reports_raise(tmp_path):
+def test_more_than_one_device_and_reports_raise(tmp_path, monkeypatch,
+                                                caplog):
+    """More than one device raises; a report that raises is logged by the
+    trainer, which still returns its metrics (as the JAX trainer does)."""
     from mile_tpu_torch.cli import main
     from mile_tpu_torch.exceptions import NotYetPortedError
+    from mile_tpu_torch.inference import reporting
 
     path = tmp_path / 'tiny.yaml'
     path.write_text(yaml.safe_dump(tiny_config(tmp_path)))
@@ -190,9 +194,17 @@ def test_more_than_one_device_and_reports_raise(tmp_path):
     from mile_tpu_torch.config import Config
     from mile_tpu_torch.train.trainer import BDETrainer
 
+    def broken(*args, **kwargs):
+        raise RuntimeError('report broke')
+
+    monkeypatch.setattr(reporting, 'generate_report', broken)
     trainer = BDETrainer(Config.from_dict(tiny_config(tmp_path)), 'cpu')
-    with pytest.raises(NotYetPortedError, match='report'):
-        trainer.train(report=True)
+    with caplog.at_level('ERROR'):
+        metrics = trainer.train(report=True)
+    assert np.isfinite(metrics['lppd'])
+    assert 'report generation failed' in caplog.text
+    assert 'report broke' in caplog.text
+    assert not (trainer.exp_dir / 'report.html').exists()
 
 
 def _imports(tree: ast.AST):

@@ -440,7 +440,7 @@ def test_runtime_options(case):
 
 
 def test_run_sampler_dispatch():
-    from mile_tpu_torch.exceptions import NotYetPortedError
+    from mile_tpu_torch.exceptions import SamplerNotImplementedError
     from mile_tpu_torch.train.sampling import run_sampler
 
     vg = value_and_grad(lambda x: -0.5 * torch.sum(x * x, dim=1))
@@ -453,6 +453,8 @@ def test_run_sampler_dispatch():
                             n_samples=4, step_size_init=0.1)
         res = run_sampler(vg, cfg, torch.Generator().manual_seed(0), x0)
         assert set(res.tuned) == keys and res.samples.shape == (2, 4, 3)
-    with pytest.raises(NotYetPortedError, match='epoch-wise'):
+    # the JAX package has no epoch-wise sampling either, and says so
+    with pytest.raises(SamplerNotImplementedError,
+                       match='the posterior is full-batch by design'):
         run_sampler(vg, SamplerConfig(epoch_wise_sampling=True),
                     torch.Generator(), x0)

@@ -1,7 +1,7 @@
 """The port's image path against the JAX package: the image loader's splits,
 the trainer end to end on LeNetti and LeNet (its draws read and evaluated
 by the JAX package), NUTS and HMC on LeNetti, the empty test split, the
-float32 rule of the warm start, and what still raises NotYetPortedError."""
+float32 rule of the warm start, and the models that once were not ported."""
 import os
 import pickle
 import subprocess
@@ -335,20 +335,23 @@ def test_lenet_fmnist_config_runs_on_the_cpu(lenet_cli_run):
                                   'PretrainedAttentionClassifier',
                                   'EmbeddingClassifier', 'PartitionFCN'])
 def test_text_path_and_partition_fcn_are_not_yet_ported(what, tmp_path):
-    """Of the features this test once found missing, only PartitionFCN
-    still raises NotYetPortedError: the text loader and the three
-    attention models are ported (their parity tests are
-    ``tests/test_torch_text.py`` and ``tests/test_torch_attention.py``)
-    and build here."""
+    """Every feature this test once found missing is ported and builds
+    here: the text loader and the three attention models (their parity
+    tests are ``tests/test_torch_text.py`` and
+    ``tests/test_torch_attention.py``) and PartitionFCN, an FCN with the
+    same layout (``tests/test_torch_partition.py``)."""
     from mile_tpu_torch.config.data import DataConfig
     from mile_tpu_torch.config.models import ModelConfig
     from mile_tpu_torch.data import TextLoader, build_loader
-    from mile_tpu_torch.exceptions import NotYetPortedError
     from mile_tpu_torch.models import build_model
 
     if what == 'PartitionFCN':
-        with pytest.raises(NotYetPortedError, match='not yet ported'):
-            build_model(ModelConfig.resolve({'model': what}), (5,))
+        from mile_tpu_torch.models import FCN, PartitionFCN
+
+        model = build_model(ModelConfig.resolve({'model': what}), (5,))
+        fcn = build_model(ModelConfig.resolve({'model': 'FCN'}), (5,))
+        assert isinstance(model, PartitionFCN) and isinstance(model, FCN)
+        assert model.layout.to_json() == fcn.layout.to_json()
     elif what == 'text loader':
         path = tmp_path / 't.csv'
         path.write_text('text,label\nab,0\nba,1\n')
