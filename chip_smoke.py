@@ -49,6 +49,20 @@ the same injected draws; and a short HMC run follows. That path runs no
 hand-written kernel (the JAX package's NUTS/HMC is plain XLA). The kernels
 are timed at each of ``TIMED_SHAPES``.
 
+Resume, streaming, warm-start reuse and split HMC: ``run_mclmc`` with a
+checkpoint directory on the main path's posterior (12 chains, dim 674,
+chunks of ``RESUME_CHUNK_KEPT`` kept draws) is stopped after chunk 2 and,
+apart, inside chunk 0, and each resumed run is held bit for bit against an
+uninterrupted one (draws, ΔE statistics, tuned ε and L), with K1 and K3
+launched only for the steps it had left; NUTS at depth 5 is stopped after
+chunk 1 of 3 and resumed, bit for bit; ``BDETrainer`` with
+``stream_samples`` writes one ``samples/{c}/sample_{n}.npz`` per draw,
+equal to ``samples.npy``, and a second trainer reuses its warm start
+(``warmstart_exp_dir``) bit for bit; ``experiments/
+torch_symmetric_splitting.py`` runs split HMC at LeNet width (49 shards of
+64 images) with its time per shard gradient and per proposal, and one
+split-leapfrog step on the card is held against the CPU's.
+
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
 JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
@@ -213,6 +227,63 @@ NUTS_PROFILE_DEPTH = 7
 HMC_CUT = {'training.sampler.name': 'hmc',
            'training.sampler.warmup_steps': 30,
            'training.sampler.n_samples': 20}
+
+# Mid-chain resume of run_mclmc on the main path's posterior and members
+# (12 chains, dim 674, CUT's 200 tuner and 200 sampling steps thinned by
+# 10: 20 kept draws) in chunks of RESUME_CHUNK_KEPT kept draws (4 chunks):
+# an uninterrupted run, a run whose sink stops it after its second chunk,
+# the resumed run; then a run stopped inside chunk 0 and its resumed run.
+# Each is held bit for bit against the uninterrupted run.
+RESUME_RESULTS = ROOT / 'results' / 'chip_smoke_resume'
+RESUME_CHUNK_KEPT = 5
+RESUME_SEED = 29
+# NUTS resume on the NUTS path's posterior and members at tree depth 5 (the
+# depth of the NUTS step check): 20 adaptation steps, 6 draws in 3 chunks
+# of 2, stopped after the first chunk, resumed, held bit for bit
+NUTS_RESUME_CUT = {'training.sampler.max_num_doublings': 5,
+                   'training.sampler.warmup_steps': 20,
+                   'training.sampler.n_samples': 6,
+                   'training.sampler.n_thinning': 1}
+NUTS_RESUME_CHUNK_KEPT = 2
+# The trainer on the main path's config (CUT, the warm start cut further to
+# STREAM_EPOCHS epochs) with stream_samples, then a second trainer that
+# reuses the first one's warm start
+STREAM_EPOCHS = 2
+STREAM_RESULTS = ROOT / 'results' / 'chip_smoke_stream'
+REUSE_RESULTS = ROOT / 'results' / 'chip_smoke_reuse'
+# Symmetric-split HMC (experiments/torch_symmetric_splitting.py) at LeNet
+# width (dim 61,706) on the image path's synthetic archive: the
+# reference's batch 64, 30 leapfrog steps, step 5e-4 and mass 0.01, on
+# 4,096 images (3,153 for training: 49 shards, 2 x 49 x 30 = 2,940 shard
+# gradients a proposal), 3 proposals of which 1 is burnt (on an NVIDIA
+# H100 80GB HBM3 at 700 W a proposal took 7.4-15.5 s, host-bound, and 6
+# proposals, 2 burnt, made the phase 123 s on the slower host). One
+# split-leapfrog step (98 shard gradients) on the card against the CPU's
+# from the same theta and p in float32: the end point's change within
+# SPLIT_STEP_RTOL of the largest change, for theta and p apart (the image
+# path's likelihood gradient agrees card vs CPU to about 3e-5 of its max)
+SPLIT_SCRIPT = ROOT / 'experiments' / 'torch_symmetric_splitting.py'
+SPLIT_ARGS = ['--source', 'local', '--datapoint-limit', '4096',
+              '--num-samples', '3', '--burn', '1']
+SPLIT_SHAPE = (49, 64, 61_706)   # shards, batch, dim
+SPLIT_STEP_RTOL = 1e-4
+
+
+class SimulatedStop(Exception):
+    """Stops a sampling run part way, as a preemption would."""
+
+
+class StopAfter:
+    """A sample sink that stops the run when it receives its ``n``-th
+    chunk (after that chunk and its snapshot are on disk)."""
+
+    def __init__(self, n: int):
+        self.n, self.seen = n, 0
+
+    def __call__(self, chunk, start):
+        self.seen += 1
+        if self.seen >= self.n:
+            raise SimulatedStop(f'after chunk {self.seen}')
 
 
 def fail(msg: str) -> None:
@@ -591,6 +662,7 @@ class Smoke:
             time.perf_counter() - t0
         self._agreement(trainer, result)
         self._profile(trainer, result)
+        self.main_run = (trainer, members)
 
     def _train(self, trainer):
         """``trainer.train()``, as a user calls it (report included), with
@@ -640,7 +712,8 @@ class Smoke:
         ``metrics.pkl``."""
         import pickle
 
-        from mile_tpu_torch.inference.reporting import keystr, parse_times
+        from mile_tpu_torch.inference.reporting import parse_times
+        from mile_tpu_torch.models.layout import keystr
 
         exp = trainer.exp_dir
         page = ((exp / 'report.html').read_text()
@@ -1788,6 +1861,371 @@ Step by step: each card step is held against the same step taken on
         self.timings['hmc'] = {**result.seconds, 'mean_acceptance': acc,
                                'step_size': result.tuned['step_size'].tolist()}
 
+    # ------------------------------------------------------------ resume
+    def _equal(self, a, b, keys) -> dict:
+        """Bitwise equality of two sampling results: the draws and the
+        named ``info`` and ``tuned`` arrays."""
+        import numpy as np
+
+        out = {'samples': bool(np.array_equal(a.samples, b.samples))}
+        for where, key in keys:
+            out[key] = bool(np.array_equal(getattr(a, where)[key],
+                                           getattr(b, where)[key]))
+        return out
+
+    def _launches(self) -> tuple:
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        return (ops.isokinetic_momentum.launches,
+                ops.partial_refresh.launches)
+
+    def mclmc_resume(self):
+        """run_mclmc with ``checkpoint_dir`` on the main path's posterior
+        and members, in RESUME_CHUNK_KEPT-draw chunks: an uninterrupted
+        run, a run stopped by its sink after chunk 2 and its resumed run,
+        a run stopped inside chunk 0 (before its first drain) and its
+        resumed run. Each resumed run's draws, ΔE statistics and tuned
+        step size and L equal the uninterrupted run's bit for bit, and it
+        launches K1 3 times and K3 once per step it had left (the tuner
+        is skipped)."""
+        import json as _json
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train import sampling
+
+        trainer, members = self.main_run
+        scfg = trainer.config.training.sampler
+        x, y = trainer.loader.arrays('train')
+        vg = trainer.bayes.logdensity_and_grad_fn(x, y)
+        n_chains, dim = MAIN_SHAPE
+        thin = scfg.n_thinning
+        n_kept = math.ceil(scfg.n_samples / thin)
+        n_chunks = math.ceil(n_kept / RESUME_CHUNK_KEPT)
+        self.check(n_chunks >= 4 and members.shape == (n_chains, dim),
+                   f'resume at full width: {tuple(members.shape)} members, '
+                   f'{n_kept} kept draws in {n_chunks} chunks of '
+                   f'{RESUME_CHUNK_KEPT}')
+        shutil.rmtree(RESUME_RESULTS, ignore_errors=True)
+        seconds = {}
+
+        def run(name, label=None, **kwargs):
+            t0 = time.perf_counter()
+            out = sampling.run_mclmc(
+                vg, scfg, torch.Generator().manual_seed(RESUME_SEED),
+                members, max_chunk_bytes=RESUME_CHUNK_KEPT * n_chains * dim
+                * 4, checkpoint_dir=RESUME_RESULTS / name, **kwargs)
+            torch.cuda.synchronize()
+            seconds[label or name] = time.perf_counter() - t0
+            return out
+
+        def kept_done(name) -> int:
+            meta = RESUME_RESULTS / name / 'sampler_meta.json'
+            return _json.loads(meta.read_text())['kept_done']
+
+        keys = [('info', 'energy_change'), ('info', 'energy_change_sq'),
+                ('tuned', 'step_size'), ('tuned', 'L')]
+        ops.reset_launch_counts()
+        full = run('full')
+        self.check(not (RESUME_RESULTS / 'full').exists(),
+                   'the uninterrupted run removed its checkpoint directory')
+        stops = {'after chunk 2': ('stop2', StopAfter(2)),
+                 'inside chunk 0': ('stop0', None)}
+        for label, (name, sink) in stops.items():
+            push = sampling.Drain.push
+            if sink is None:   # stop before the first chunk is drained
+                def halt(*args, **kwargs):
+                    raise SimulatedStop('inside chunk 0')
+                sampling.Drain.push = halt
+            try:
+                run(name, sample_sink=sink)
+                stopped = False
+            except SimulatedStop:
+                stopped = True
+            finally:
+                sampling.Drain.push = push
+            done = kept_done(name)
+            chunks = len(list((RESUME_RESULTS / name).glob('chunk_*.npz')))
+            before = self._launches()
+            resumed = run(name, f'{name} resumed')
+            k1, k3 = (a - b for a, b in zip(self._launches(), before))
+            left = (n_kept - done) * thin
+            same = self._equal(resumed, full, keys)
+            self.check(stopped and done == chunks * RESUME_CHUNK_KEPT
+                       and all(same.values()) and (k1, k3) == (3 * left,
+                                                               left)
+                       and not (RESUME_RESULTS / name).exists(),
+                       f'MCLMC stopped {label} (snapshot at {done} kept '
+                       f'draws, {chunks} chunks on disk) and resumed: '
+                       f'bitwise equal to the uninterrupted run {same}; '
+                       f'resumed run launched K1 {k1} (3 x {left} steps '
+                       f'left) and K3 {k3} (1 x {left}): the tuner was '
+                       f'skipped; checkpoint removed on success')
+        self.path_launches['resume'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), self._launches()))
+        self.timings['mclmc_resume_s'] = seconds
+        print(f'  run_mclmc wall times (s): {json.dumps(seconds)}')
+
+    def nuts_resume(self):
+        """run_hmc_family (NUTS, depth 5) with ``checkpoint_dir`` on the
+        NUTS path's posterior and members: stopped after chunk 1 of 3 and
+        resumed, its draws and every per-draw statistic bit for bit the
+        uninterrupted run's, with the sampling generator's state restored
+        on the card."""
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.train.sampling_hmc import run_hmc_family
+
+        trainer, members, _ = self.nuts_run
+        scfg = trainer.config.replace(**NUTS_RESUME_CUT).training.sampler
+        x, y = trainer.loader.arrays('train')
+        vg = trainer.bayes.logdensity_and_grad_fn(x, y)
+        root = RESUME_RESULTS / 'nuts'
+        shutil.rmtree(root, ignore_errors=True)
+        seconds = {}
+
+        def run(name, label=None, **kwargs):
+            t0 = time.perf_counter()
+            out = run_hmc_family(
+                vg, scfg, torch.Generator().manual_seed(RESUME_SEED),
+                members, max_chunk_bytes=NUTS_RESUME_CHUNK_KEPT
+                * MAIN_SHAPE[0] * MAIN_SHAPE[1] * 4,
+                checkpoint_dir=root / name, **kwargs)
+            torch.cuda.synchronize()
+            seconds[label or name] = time.perf_counter() - t0
+            return out
+
+        full = run('full')
+        try:
+            run('stop', sample_sink=StopAfter(1))
+            stopped = False
+        except SimulatedStop:
+            stopped = True
+        chunks = len(list((root / 'stop').glob('chunk_*.npz')))
+        resumed = run('stop', 'stop resumed')
+        same = self._equal(resumed, full, [('info', k) for k in full.info]
+                           + [('tuned', 'step_size'),
+                              ('tuned', 'inverse_mass_matrix')])
+        n_kept = scfg.n_samples
+        self.check(stopped and chunks == 1 and all(same.values())
+                   and full.samples.shape == (MAIN_SHAPE[0], n_kept,
+                                              MAIN_SHAPE[1])
+                   and bool(np.isfinite(full.samples).all()),
+                   f'NUTS (depth {scfg.max_num_doublings}, {n_kept} draws '
+                   f'in chunks of {NUTS_RESUME_CHUNK_KEPT}) stopped after '
+                   f'chunk 1 and resumed: bitwise equal {same}')
+        self.timings['nuts_resume_s'] = seconds
+        print(f'  run_hmc_family wall times (s): {json.dumps(seconds)}')
+
+    def stream_and_reuse(self):
+        """BDETrainer on the main path's config with ``stream_samples``:
+        one ``samples/{c}/sample_{n}.npz`` per draw, its entries named as
+        the JAX package names the leaves, row for row equal to
+        ``chain_{c}/samples.npy``; then a second trainer whose
+        ``warmstart_exp_dir`` is the first run: its members, and the
+        copies it saves, equal the first run's bit for bit."""
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.models.layout import jax_leaves_from_flat, keystr
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train import checkpoint as ckpt
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        (config,) = Config.from_file(CONFIG)
+        config = config.replace(
+            saving_dir=str(STREAM_RESULTS.parent),
+            experiment_name=STREAM_RESULTS.name,
+            **{**CUT, 'training.sampler.stream_samples': True,
+               'training.warmstart.max_epochs': STREAM_EPOCHS})
+        for path in (STREAM_RESULTS, REUSE_RESULTS):
+            shutil.rmtree(path, ignore_errors=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = BDETrainer(config, device=self.dev)
+        metrics = trainer.train()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.path_launches['stream'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), self._launches()))
+        scfg = config.training.sampler
+        n_chains, dim = MAIN_SHAPE
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        layout = trainer.model.layout
+        names = [keystr(leaf.path) for leaf in layout.leaves]
+        files = ok = 0
+        for c in range(n_chains):
+            rows = np.load(trainer.samples_dir / f'chain_{c}' / 'samples.npy')
+            for n in range(n_kept):
+                path = trainer.samples_dir / f'{c}' / f'sample_{n}.npz'
+                if not path.exists():
+                    continue
+                files += 1
+                with np.load(path) as d:
+                    want = jax_leaves_from_flat(rows[n], layout)
+                    ok += (list(d.files) == names and all(
+                        np.array_equal(d[k], w) for k, w in zip(names, want)))
+        self.check(trainer.sink is None and files == ok == n_chains * n_kept
+                   and rows.shape == (n_kept, dim)
+                   and math.isfinite(float(metrics['lppd'])),
+                   f'stream_samples: {files} files samples/{{c}}/sample_{{n}}'
+                   f'.npz (= {n_chains} x {n_kept}), {ok} with the JAX '
+                   f'leaf names ({names[0]}, ...) equal row for row to '
+                   f'chain_{{c}}/samples.npy; no native sink; lppd '
+                   f'{float(metrics["lppd"]):.4f}')
+
+        reuse = config.replace(
+            experiment_name=REUSE_RESULTS.name,
+            **{'training.sampler.stream_samples': False,
+               'training.warmstart.warmstart_exp_dir': str(trainer.exp_dir)})
+        second = BDETrainer(reuse, device=self.dev)
+        members = second.train_warmstart().cpu().numpy()
+        t2 = time.perf_counter()
+        ids = list(range(n_chains))
+        first = ckpt.load_params_batch(trainer.warmstart_dir, ids)
+        again = ckpt.load_params_batch(second.warmstart_dir, ids)
+        self.check(np.array_equal(members, first)
+                   and np.array_equal(again, first),
+                   f'warmstart_exp_dir: the second trainer\'s '
+                   f'{members.shape} members and the copies it saved equal '
+                   f'the first run\'s bit for bit')
+        self.timings['stream_and_reuse_s'] = {'stream_train': t1 - t0,
+                                              'reuse_warmstart': t2 - t1}
+
+    # ---------------------------------------------------------- split HMC
+    def _split_module(self):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            'torch_symmetric_splitting', SPLIT_SCRIPT)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    def split_hmc(self):
+        """experiments/torch_symmetric_splitting.py on the card at LeNet
+        width (SPLIT_ARGS on the image path's synthetic archive, the
+        reference's hyperparameters): its JSON line, finite accuracy and
+        LPPD, no hand-written kernel; the time of a shard gradient and of
+        a proposal; one split-leapfrog step on the card against the CPU's
+        from the same theta and p in float32."""
+        import contextlib as _contextlib
+        import io
+
+        torch = self.torch
+        from mile_tpu_torch.mcmc import split_hmc
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        if not IMAGE_ARCHIVE.exists():
+            self._image_archive()
+        module = self._split_module()
+        argv = ['--dataset', str(IMAGE_ARCHIVE), *SPLIT_ARGS]
+        args = module.parse_args(argv + ['--device', self.dev.type])
+        ops.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with _contextlib.redirect_stdout(out):
+            result = module.main(argv + ['--device', self.dev.type])
+        wall = time.perf_counter() - t0
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            print(f'    {line}')
+        launches = self._launches()
+        values = (result['accuracy'], result['lppd'])
+        self.check(json.loads(lines[-1]) == result
+                   and all(math.isfinite(v) for v in values)
+                   and 0.0 <= result['acceptance_rate'] <= 1.0
+                   and result['n_samples'] == args.num_samples - args.burn
+                   and launches == (0, 0),
+                   f'torch_symmetric_splitting.py on the card: last line '
+                   f'{lines[-1]}; K1/K3 launches {launches} (plain torch)')
+
+        card = module.setup(args)
+        n_shards, batch, dim = SPLIT_SHAPE
+        self.check((card.n_shards, args.batch_size, card.bayes.dim)
+                   == SPLIT_SHAPE and args.num_steps == 30
+                   and args.step_size == 5e-4 and args.mass == 0.01,
+                   f'split HMC at LeNet width: {card.n_shards} shards of '
+                   f'{args.batch_size} ({card.n_train} training images), dim '
+                   f'{card.bayes.dim}, {args.num_steps} leapfrog steps of '
+                   f'{args.step_size:g}, mass {args.mass:g}')
+        n_shards = card.n_shards
+        cpu = module.setup(module.parse_args(argv + ['--device', 'cpu']))
+        gen = torch.Generator().manual_seed(37)
+        p = torch.randn(1, dim, generator=gen) / 10.0
+        theta = card.theta0.cpu()
+        imm = card.inverse_mass_matrix.cpu()
+        ends, times = {}, {}
+        with matmul_precision('float32'):
+            for name, problem in (('card', card), ('cpu', cpu)):
+                step = split_hmc.build_integrator(problem.shard_potential,
+                                                  problem.n_shards)
+                dev = problem.device
+                t0 = time.perf_counter()
+                ends[name] = [v.cpu() for v in step(
+                    theta.to(dev), p.to(dev), args.step_size, imm.to(dev))]
+                times[name] = time.perf_counter() - t0
+            # the card's step again, warm: 2 x 49 shard gradients
+            step = split_hmc.build_integrator(card.shard_potential, n_shards)
+            reps = 2
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step(card.theta0, p.to(self.dev), args.step_size,
+                     card.inverse_mass_matrix)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / reps
+            # where a shard gradient's time goes: one profiled step
+            try:
+                wall_us, busy, rows, _ = self._profiled(
+                    lambda: step(card.theta0, p.to(self.dev),
+                                 args.step_size, card.inverse_mass_matrix))
+                n_grads = 2 * n_shards
+                profile = {
+                    'wall_ms_per_shard_gradient': wall_us / 1e3 / n_grads,
+                    'device_ms_per_shard_gradient': busy / 1e3 / n_grads,
+                    'device_busy_share': busy / wall_us,
+                    'kernels_per_shard_gradient':
+                        sum(r[1] for r in rows) / n_grads,
+                    'top': [{'name': k[:60], 'launches': c, 'us': d}
+                            for d, c, k in rows[:6]]}
+            except Exception as exc:   # reported, not fatal
+                profile = {'unavailable': repr(exc)}
+        # the script's own sampling time (to 0.1 s) over its proposals
+        proposal_s = result['sampling_time_s'] / args.num_samples
+        errors = {}
+        for i, name in enumerate(('theta', 'p')):
+            start = theta if name == 'theta' else p
+            change = float((ends['cpu'][i] - start).abs().max())
+            errors[name] = float((ends['card'][i] - ends['cpu'][i])
+                                 .abs().max()) / change
+        self.check(max(errors.values()) <= SPLIT_STEP_RTOL,
+                   f'one split-leapfrog step ({2 * n_shards} shard '
+                   f'gradients), card vs CPU in float32: max error of the '
+                   f'end point over the largest change {errors} (rtol '
+                   f'{SPLIT_STEP_RTOL:g}); card {times["card"]:.2f} s cold, '
+                   f'CPU {times["cpu"]:.2f} s')
+        shard_ms = 1e3 * step_s / (2 * n_shards)
+        self.timings['split_hmc'] = {
+            'script_wall_s': wall, 'result': result,
+            'shard_gradient_ms': shard_ms, 'leapfrog_step_s': step_s,
+            'proposal_s': proposal_s, 'step_check_rel_err': errors,
+            'profile': profile,
+            'cpu_step_s': times['cpu']}
+        print(f'  split HMC: a shard gradient (LeNet, batch {batch}) '
+              f'{shard_ms:.3f} ms, a split-leapfrog step {step_s:.3f} s, a '
+              f'proposal ({args.num_steps} steps, '
+              f'{2 * n_shards * args.num_steps} shard gradients, then the '
+              f'full potential) {proposal_s:.2f} s; the script '
+              f'{wall:.1f} s')
+        print(f'  split HMC profile {json.dumps(profile)}')
+
     # ---------------------------------------------------------- timings
     def _time_ms(self, fn, n: int = 500, reps: int = 5) -> float:
         torch = self.torch
@@ -1926,8 +2364,13 @@ def main() -> int:
         smoke.phase('K1 isokinetic_momentum vs plain', smoke.k1)
         smoke.phase('K3 partial_refresh vs plain, Philox statistics',
                     smoke.k3)
-        smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim 674',
-                    smoke.main_path)
+        if smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim '
+                       '674', smoke.main_path):
+            smoke.phase('MCLMC resume: run_mclmc stopped and resumed on the '
+                        'main path\'s posterior, 12 chains, dim 674',
+                        smoke.mclmc_resume)
+        smoke.phase('stream_samples and warmstart_exp_dir: BDETrainer on '
+                    'airfoil, 12 chains, dim 674', smoke.stream_and_reuse)
         smoke.phase('partition path: BDETrainer on energy PartitionFCN, 12 '
                     'chains, dim 2,082, subspace 178', smoke.partition_path)
         smoke.phase('image path: BDETrainer on LeNet, 10 chains, dim 61,706',
@@ -1936,8 +2379,12 @@ def main() -> int:
                     'dim 65,248', smoke.text_path)
         if smoke.phase('NUTS path: BDETrainer on airfoil NUTS, 12 chains, '
                        'dim 674, depth 10', smoke.nuts_path):
+            smoke.phase('NUTS resume: depth 5, stopped after chunk 1 of 3 '
+                        'and resumed', smoke.nuts_resume)
             smoke.phase('HMC: a short run on the same posterior',
                         smoke.hmc_run)
+        smoke.phase('split HMC: torch_symmetric_splitting.py on LeNet, dim '
+                    '61,706, 49 shards of 64', smoke.split_hmc)
         smoke.phase('timings at ' + ', '.join(
             f'({c}, {d})' for c, d in TIMED_SHAPES), smoke.kernel_timings)
     if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))
@@ -1962,7 +2409,8 @@ def main() -> int:
             'name': name, 'route': 'cuda',
             'source': f'mile_tpu_torch/csrc/isokinetic.cu ({source_fn})',
             'replaces': replaces,
-            # the airfoil, partition, image and text paths
+            # the airfoil, partition, image and text paths, the MCLMC
+            # resume phase and the streaming trainer
             'launches': smoke.launches.get(name, 0) + sum(
                 path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,

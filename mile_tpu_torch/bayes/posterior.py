@@ -138,3 +138,21 @@ class BayesianModel:
     def logdensity_and_grad_fn(self, x, y):
         """The sampler's hot function: ``theta (C, dim) -> ((C,), (C, dim))``."""
         return value_and_grad(self.logdensity_fn(x, y))
+
+    def shard_potential_fn(self, x_shards, y_shards) -> Callable:
+        """``U_j(theta)`` for :mod:`mile_tpu_torch.mcmc.split_hmc`:
+        ``-(loglik(shard j) + log_prior / M)`` over the device-resident
+        shards ``x_shards`` (M, B, ...) and ``y_shards`` (M, B), for a
+        ``(C, dim)`` batch -> ``(C,)`` or one chain ``(dim,)`` -> a scalar.
+        ``Σ_j U_j`` is the negative log-posterior of the sharded data (the
+        prior is spread 1/M per shard); it is differentiable in ``theta``
+        (the likelihood is chunked as :meth:`log_likelihood` chunks it)."""
+        n_shards = x_shards.shape[0]
+
+        def shard_potential(theta: torch.Tensor, j: int) -> torch.Tensor:
+            if theta.dim() == 1:
+                return shard_potential(theta[None], j)[0]
+            return -(self.log_likelihood(theta, x_shards[j], y_shards[j])
+                     + self.log_prior(theta) / n_shards)
+
+        return shard_potential

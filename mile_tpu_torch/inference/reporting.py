@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from mile_tpu_torch.inference import metrics as M
-from mile_tpu_torch.models.layout import FlatLayout
+from mile_tpu_torch.models.layout import FlatLayout, keystr
 from mile_tpu_torch.train import checkpoint as ckpt
 from mile_tpu_torch.utils.device import resolve_device
 
@@ -42,12 +42,6 @@ def parse_times(log_path: Path) -> dict:
         for match in TIME_RE.finditer(log_path.read_text()):
             times[match.group(1)] = float(match.group(2))
     return times
-
-
-def keystr(path: str) -> str:
-    """A layout path ``fcn/layer0/bias`` as ``jax.tree_util.keystr`` names
-    the same leaf: ``['fcn']['layer0']['bias']``."""
-    return ''.join(f'[{key!r}]' for key in path.split('/'))
 
 
 def layer_slices(layout: FlatLayout) -> dict:

@@ -20,7 +20,11 @@ from mile_tpu_torch.mcmc.integrators import (
     isokinetic_leapfrog,
     isokinetic_mclachlan,
 )
-from mile_tpu_torch.ops.isokinetic import partial_refresh, step_counter
+from mile_tpu_torch.ops.isokinetic import (
+    counter_steps,
+    partial_refresh,
+    step_counter,
+)
 
 MCLMCState = IntegratorState
 
@@ -65,24 +69,39 @@ class MCLMCKernel:
     noise on each replay.
     ``energy_sums``: an optional pair of (C,) tensors into which ΔE and ΔE²
     are added in place.
+    ``seed`` and ``step``: the run seed (drawn from ``generator`` when None)
+    and the counter's first step; a resumed run passes the saved ones
+    (:meth:`random_state`).
     """
 
     def __init__(self, logdensity_and_grad: Callable,
-                 generator: torch.Generator, integrator: str = 'mclachlan',
-                 noise: Optional[Iterator[torch.Tensor]] = None):
+                 generator: Optional[torch.Generator],
+                 integrator: str = 'mclachlan',
+                 noise: Optional[Iterator[torch.Tensor]] = None,
+                 seed: Optional[int] = None, step: int = 0):
         make = (isokinetic_leapfrog if integrator == 'leapfrog'
                 else isokinetic_mclachlan)
         self.integrator_step = make(logdensity_and_grad)
-        self.seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+        if seed is None:
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+        self.seed, self.step = int(seed), int(step)
         self.counter = None
         self.noise = noise
+
+    def random_state(self) -> dict:
+        """The seed and the counter's step, as int64 tensors, queued in
+        stream order: the state as of the last call, which later calls do
+        not change and reading which waits for nothing but that call."""
+        step = (torch.tensor(self.step) if self.counter is None
+                else counter_steps(self.counter))
+        return {'seed': torch.tensor(self.seed), 'step': step}
 
     def __call__(self, state: MCLMCState, L: torch.Tensor,
                  step_size: torch.Tensor,
                  sqrt_diag_cov: Optional[torch.Tensor] = None,
                  energy_sums: Optional[tuple] = None):
         if self.counter is None:
-            self.counter = step_counter(0, state.position.device)
+            self.counter = step_counter(self.step, state.position.device)
         new_state, kinetic_change = self.integrator_step(
             state, step_size, sqrt_diag_cov)
         z = None if self.noise is None else next(self.noise)
@@ -95,11 +114,13 @@ class MCLMCKernel:
                                     energy_change)
 
 
-def build_kernel(logdensity_and_grad: Callable, generator: torch.Generator,
+def build_kernel(logdensity_and_grad: Callable,
+                 generator: Optional[torch.Generator],
                  integrator: str = 'mclachlan',
-                 noise: Optional[Iterator[torch.Tensor]] = None
-                 ) -> MCLMCKernel:
+                 noise: Optional[Iterator[torch.Tensor]] = None,
+                 seed: Optional[int] = None, step: int = 0) -> MCLMCKernel:
     """The MCLMC step for a chain batch. ``integrator``: 'mclachlan' or
     'mclachlan_pallas' (the same in the port: kernels on CUDA tensors,
     plain versions on CPU tensors), or 'leapfrog'."""
-    return MCLMCKernel(logdensity_and_grad, generator, integrator, noise)
+    return MCLMCKernel(logdensity_and_grad, generator, integrator, noise,
+                       seed, step)

@@ -15,6 +15,12 @@ from typing import Mapping, NamedTuple
 import numpy as np
 
 
+def keystr(path: str) -> str:
+    """A layout path ``fcn/layer0/bias`` as ``jax.tree_util.keystr`` names
+    the same leaf: ``['fcn']['layer0']['bias']``."""
+    return ''.join(f'[{key!r}]' for key in path.split('/'))
+
+
 class Leaf(NamedTuple):
     path: str                 # '/'-joined key path, e.g. 'fcn/layer0/bias'
     shape: tuple[int, ...]

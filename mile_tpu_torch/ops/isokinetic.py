@@ -246,7 +246,14 @@ def step_counter(step: int = 0, device=None) -> torch.Tensor:
 def counter_step(counter: torch.Tensor) -> int:
     """The step a :func:`step_counter` holds (reading it waits for the
     device)."""
-    return int(counter) >> _TICKET_BITS
+    return int(counter_steps(counter))
+
+
+def counter_steps(counter: torch.Tensor) -> torch.Tensor:
+    """The step a :func:`step_counter` holds, as a new int64 tensor on its
+    device: computed in stream order, so it keeps the step at the point of
+    the call while the counter goes on, and nothing waits for the device."""
+    return counter >> _TICKET_BITS
 
 
 def refresh_noise_cpu(shape, seed: int, counter: int) -> torch.Tensor:

@@ -7,7 +7,9 @@
   load_flat_samples``: ``samples/chain_{c}/samples.bin`` + ``samples.meta``,
   written while sampling runs by the native sink
   (:mod:`mile_tpu_torch.native`), or ``samples/chain_{c}/samples.npy``,
-  written at the end when the sink is unavailable;
+  written at the end when the sink is not used;
+- with ``stream_samples``, one ``samples/{c}/sample_{n}.npz`` per draw as
+  well (:func:`save_samples_streaming`);
 - ``warmup_params.txt`` (MCLMC only): tuned step sizes and Ls, one line
   each.
 
@@ -25,7 +27,11 @@ from pathlib import Path
 
 import numpy as np
 
-from mile_tpu_torch.models.layout import FlatLayout, jax_leaves_from_flat
+from mile_tpu_torch.models.layout import (
+    FlatLayout,
+    jax_leaves_from_flat,
+    keystr,
+)
 
 LAYOUT_FILE = 'layout.json'
 
@@ -83,6 +89,20 @@ def save_samples(path: str | Path, flat_samples: np.ndarray) -> None:
     """Save (n_chains, n_kept, dim) samples, one file per chain."""
     for c in range(flat_samples.shape[0]):
         save_chain_samples(path, c, flat_samples[c])
+
+
+def save_samples_streaming(path: str | Path, chain_id: int, draw_id: int,
+                           flat: np.ndarray, layout: FlatLayout) -> None:
+    """The per-draw layout of the JAX package's ``stream_samples``:
+    ``{path}/{chain}/sample_{n}.npz`` with one entry per leaf, in JAX leaf
+    order, named as ``jax.tree_util.keystr`` names it and shaped as the
+    leaf."""
+    chain_dir = Path(path) / f'{chain_id}'
+    chain_dir.mkdir(parents=True, exist_ok=True)
+    leaves = jax_leaves_from_flat(flat, layout)
+    np.savez_compressed(chain_dir / f'sample_{draw_id}.npz',
+                        **{keystr(leaf.path): value for leaf, value
+                           in zip(layout.leaves, leaves)})
 
 
 def load_flat_samples(path: str | Path) -> np.ndarray:

@@ -1,0 +1,155 @@
+"""Mid-chain sampler checkpoint and resume (counterpart of
+``mile_tpu/train/resume.py``).
+
+The chunked egress of the sampling runtimes doubles as a checkpoint
+boundary: after every drained chunk the directory atomically receives
+
+- the sampler state as of the end of that chunk (position, momentum for
+  MCLMC, log-density, gradient),
+- the random state as of the same moment, and the tuned hyperparameters,
+- the kept-draw counter and the drained chunks themselves,
+
+so that a run that was stopped resumes where it stopped, skips the warmup,
+and gives draws bit-identical to an uninterrupted run.
+
+The file names and formats are the JAX package's, with one difference:
+where the JAX snapshot stores the chains' threefry keys (``key_data``),
+the port stores its own random state as ``rng_*`` entries:
+
+- MCLMC: the refresh kernel's run seed and its step counter's step
+  (``rng_seed``, ``rng_step``), which key the refresh noise on the card
+  (Philox in K3) and on the CPU (``refresh_noise_cpu``);
+- NUTS and HMC: the sampling ``Draws`` generator's ``get_state()``
+  (``rng_generator_state``), put back with ``set_state`` on a generator of
+  the chains' device.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mile_tpu_torch.exceptions import NotYetPortedError
+
+logger = logging.getLogger(__name__)
+
+_SNAPSHOT = 'sampler_state.npz'
+_META = 'sampler_meta.json'
+_WARMUP_TRACE = 'warmup_trace.npy'
+
+
+def generator_digest(generator: torch.Generator) -> str:
+    """A digest of a generator's state: the fingerprint's stand-in for the
+    JAX run key, so that a run resumes only from a checkpoint made with the
+    same random stream."""
+    return hashlib.sha256(generator.get_state().numpy().tobytes()).hexdigest()
+
+
+class SamplerCheckpoint:
+    """Atomic snapshot and drained-chunk store under one directory.
+
+    Every write goes to a ``.tmp`` file first and is moved over the target
+    with ``os.replace``. ``fmt='orbax'`` is not ported and raises."""
+
+    def __init__(self, directory: str | Path, fingerprint: dict,
+                 fmt: str = 'npz'):
+        if fmt == 'orbax':
+            raise NotYetPortedError('orbax checkpoints')
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        # every value that decides the draws is in the fingerprint: a
+        # checkpoint made under other settings is ignored
+        self.fingerprint = {k: (v.tolist() if isinstance(v, np.ndarray)
+                                else v) for k, v in fingerprint.items()}
+
+    def _write(self, name: str, write) -> None:
+        tmp = self.dir / (name + '.tmp')
+        with open(tmp, 'wb') as f:
+            write(f)
+        os.replace(tmp, self.dir / name)
+
+    # ------------------------------------------------------------- save
+    def save(self, state_leaves: dict, rng: dict, tuned: dict,
+             kept_done: int) -> None:
+        """Atomically overwrite the snapshot, then the meta file that
+        points at it."""
+        arrays = {f'state_{k}': np.asarray(v) for k, v in state_leaves.items()}
+        arrays.update({f'rng_{k}': np.asarray(v) for k, v in rng.items()})
+        arrays.update({f'tuned_{k}': np.asarray(v) for k, v in tuned.items()})
+        self._write(_SNAPSHOT, lambda f: np.savez(f, **arrays))
+        meta = {'fingerprint': self.fingerprint, 'kept_done': int(kept_done)}
+        self._write(_META, lambda f: f.write(json.dumps(meta).encode()))
+
+    def save_warmup_trace(self, trace: np.ndarray) -> None:
+        """The thinned warmup trajectory, so that a resumed run returns the
+        same ``warmup_trace`` as an uninterrupted one."""
+        self._write(_WARMUP_TRACE, lambda f: np.save(f, np.asarray(trace)))
+
+    def load_warmup_trace(self) -> np.ndarray | None:
+        path = self.dir / _WARMUP_TRACE
+        return np.load(path) if path.exists() else None
+
+    def save_chunk(self, index: int, positions: np.ndarray,
+                   aux: dict) -> None:
+        """``aux``: the chunk's per-draw statistics (a flat dict)."""
+        arrays = {f'aux_{k}': np.asarray(v) for k, v in aux.items()}
+        self._write(f'chunk_{index:06d}.npz',
+                    lambda f: np.savez(f, positions=positions, **arrays))
+
+    # ------------------------------------------------------------- load
+    def load(self):
+        """(state_leaves, rng, tuned, kept_done), or None when there is no
+        snapshot or it belongs to another run (logged as a warning)."""
+        meta_path, snap_path = self.dir / _META, self.dir / _SNAPSHOT
+        if not (meta_path.exists() and snap_path.exists()):
+            return None
+        meta = json.loads(meta_path.read_text())
+        if meta.get('fingerprint') != self.fingerprint:
+            logger.warning(
+                'sampler checkpoint at %s belongs to a different run '
+                '(fingerprint mismatch) — ignoring it', self.dir)
+            return None
+        with np.load(snap_path) as d:
+            parts = {prefix: {k[len(prefix):]: d[k] for k in d.files
+                              if k.startswith(prefix)}
+                     for prefix in ('state_', 'rng_', 'tuned_')}
+        logger.info('resuming sampler from %s at %d kept draws',
+                    self.dir, meta['kept_done'])
+        return (parts['state_'], parts['rng_'], parts['tuned_'],
+                int(meta['kept_done']))
+
+    def load_chunks(self) -> tuple[list, list]:
+        """The drained chunks of the stopped run, in order: positions, and
+        the per-draw statistics as :meth:`save_chunk` received them."""
+        host_chunks, aux_chunks = [], []
+        for path in sorted(self.dir.glob('chunk_*.npz')):
+            with np.load(path) as d:
+                host_chunks.append(d['positions'])
+                aux_chunks.append({k[len('aux_'):]: d[k] for k in d.files
+                                   if k.startswith('aux_')})
+        return host_chunks, aux_chunks
+
+    # ---------------------------------------------------------- cleanup
+    def clear(self) -> None:
+        """Remove the snapshot and the chunks after a successful run, and
+        the directory if nothing else is in it."""
+        for path in self.dir.glob('chunk_*.npz'):
+            path.unlink()
+        for name in (_SNAPSHOT, _META, _WARMUP_TRACE):
+            (self.dir / name).unlink(missing_ok=True)
+        try:
+            self.dir.rmdir()
+        except OSError:
+            pass  # foreign files in it: leave it
+
+
+def restore_generator(state: np.ndarray, device) -> torch.Generator:
+    """A generator of ``device`` at the saved ``get_state()``."""
+    generator = torch.Generator(device=device)
+    generator.set_state(torch.from_numpy(np.asarray(state, np.uint8)))
+    return generator

@@ -4,15 +4,20 @@ NUTS or HMC on one device).
 
 Draws stream to disk while sampling runs, through the native sink
 (``samples/chain_{c}/samples.bin``); where it cannot be built the trainer
-writes ``samples.npy`` at the end instead, as the JAX trainer does.
+writes ``samples.npy`` at the end instead, as the JAX trainer does. With
+``stream_samples`` each draw is also written as
+``samples/{c}/sample_{n}.npz`` (the JAX package's per-draw layout) and
+``samples.npy`` at the end; with ``checkpoint_sampling`` the sampler
+checkpoints into ``sampler_ckpt/`` and the draws are saved at the end (an
+appending sink would write rows twice across a resume). A
+``warmstart_exp_dir`` reuses another run's ``warmstart/params_*.npz``.
 Partition and frozen sampling run in the subspace of the sampled
 coordinates, with each chain's warm-start member as its frozen base, and
 save their draws merged back to full dimension at the end.
 
 Features of the JAX trainer that the port does not have yet raise
 :class:`~mile_tpu_torch.exceptions.NotYetPortedError` when a config asks
-for them: mid-chain resume, orbax checkpoints, per-draw streaming,
-warmstart reuse, data sharding and more than one device.
+for them: orbax checkpoints, data sharding and more than one device.
 """
 from __future__ import annotations
 
@@ -51,22 +56,33 @@ NOMINAL_COVERAGES = [0.5, 0.75, 0.9, 0.95]
 
 
 def check_supported(config: Config) -> None:
-    """Raise for the config options the port lacks, and for epoch-wise
-    sampling, which the JAX package lacks too."""
+    """Raise for the config options the port lacks, for epoch-wise
+    sampling, which the JAX package lacks too, and for ``stream_samples``
+    with partition or frozen sampling, with which the JAX trainer fails."""
     scfg = config.training.sampler
     if scfg.epoch_wise_sampling:
         raise SamplerNotImplementedError(EPOCH_WISE_MESSAGE)
+    source = config.training.warmstart.warmstart_exp_dir
     unported = [
-        (scfg.checkpoint_sampling, 'mid-chain resume (checkpoint_sampling)'),
-        (scfg.stream_samples, 'per-draw sample streaming (stream_samples)'),
         (scfg.data_sharding > 1, 'data-axis sharding (data_sharding > 1)'),
-        (config.training.checkpoint_format != 'npz', 'orbax checkpoints'),
-        (config.training.warmstart.warmstart_exp_dir is not None,
-         'warmstart reuse (warmstart_exp_dir)'),
+        (config.training.checkpoint_format != 'npz'
+         or (source is not None
+             and (Path(source) / 'warmstart' / 'orbax').exists()),
+         'orbax checkpoints'),
     ]
     for unsupported, feature in unported:
         if unsupported:
             raise NotYetPortedError(feature)
+    if scfg.stream_samples and (scfg.partition_sampling
+                                or scfg.params_frozen):
+        # the JAX trainer streams the subspace-wide draws of partition
+        # sampling through the full layout's unravel, which fails after
+        # the first chunk
+        raise ValueError(
+            'training.sampler.stream_samples cannot be combined with '
+            'training.sampler.partition_sampling or params_frozen: the '
+            'per-draw files hold full parameter trees, and partition '
+            'sampling draws a subspace; turn one of them off')
 
 
 class BDETrainer:
@@ -125,10 +141,28 @@ class BDETrainer:
 
     # ------------------------------------------------------------ phases
     def train_warmstart(self) -> torch.Tensor:
-        """Deep-ensemble pre-training: flat members (n_chains, dim)."""
+        """Deep-ensemble pre-training, or the reuse of another run's
+        members (``warmstart_exp_dir``: the first ``n_chains`` of its
+        ``warmstart/params_*.npz`` in id order): flat members (n_chains,
+        dim), saved again into this run's ``warmstart/``."""
         cfg = self.config.training.warmstart
         with measure_time('time.warmstart'):
-            if cfg.include:
+            if cfg.warmstart_exp_dir:
+                src = Path(cfg.warmstart_exp_dir) / 'warmstart'
+                ids = ckpt.list_checkpoints(src)
+                if len(ids) < self.n_chains:
+                    raise ValueError(
+                        f'warmstart dir {src} has {len(ids)} checkpoints,'
+                        f' need {self.n_chains}')
+                logger.info('reusing warmstart checkpoints from %s', src)
+                params = ckpt.load_params_batch(src, ids[: self.n_chains])
+                if params.shape[1] != self.bayes.dim:
+                    raise ValueError(
+                        f'warmstart dir {src} holds members of '
+                        f'{params.shape[1]} parameters; the model has '
+                        f'{self.bayes.dim}')
+                params = torch.from_numpy(params).to(self.device)
+            elif cfg.include:
                 params, store = train_ensemble(
                     self.model, self.loader, cfg, self.config.data.task,
                     self.n_chains, self._gen_train)
@@ -163,17 +197,28 @@ class BDETrainer:
 
     def start_sampling(self, member_params: torch.Tensor) -> SamplingResult:
         """Run the configured sampler from the ensemble members' weights,
-        persisting the draws chunk by chunk through the native sink (the
-        sink is kept as ``self.sink``). Partition and frozen sampling run
-        in the subspace, without the sink, and save the draws merged back
-        to full dimension at the end."""
+        persisting the draws chunk by chunk through the native sink (kept
+        as ``self.sink``), or per draw with ``stream_samples``. Partition
+        and frozen sampling run in the subspace, without a sink, and save
+        the draws merged back to full dimension at the end; with
+        ``checkpoint_sampling`` the full-space run checkpoints into
+        ``sampler_ckpt/`` (the JAX trainer ignores the option in the
+        subspace, and so does the port)."""
         scfg = self.config.training.sampler
         x, y = self.loader.arrays('train')
         mask = self.sampled_mask()
-        self.sink = None
-        if mask is None and native_available():
-            self.sink = NativeSampleSink(self.samples_dir, self.n_chains,
-                                         self.bayes.dim)
+        self.sink = sink = None
+        if scfg.stream_samples:
+            def sink(chunk, start):
+                for c in range(chunk.shape[0]):
+                    for j in range(chunk.shape[1]):
+                        ckpt.save_samples_streaming(
+                            self.samples_dir, c, start + j, chunk[c, j],
+                            self.model.layout)
+        elif (mask is None and not scfg.checkpoint_sampling
+              and native_available()):
+            self.sink = sink = NativeSampleSink(
+                self.samples_dir, self.n_chains, self.bayes.dim)
         with measure_time('time.sampling'):
             if mask is not None:
                 logger.info('partition sampling: %d of %d coords sampled',
@@ -185,11 +230,14 @@ class BDETrainer:
                 result = result._replace(samples=part.merge(
                     member_params.cpu().numpy(), result.samples, mask))
             else:
+                # (orbax checkpoints are refused by check_supported)
+                extra = ({'checkpoint_dir': self.exp_dir / 'sampler_ckpt'}
+                         if scfg.checkpoint_sampling else {})
                 try:
                     result = run_sampler(
                         self.bayes.logdensity_and_grad_fn(x, y), scfg,
-                        self._gen_sample, member_params,
-                        sample_sink=self.sink)
+                        self._gen_sample, member_params, sample_sink=sink,
+                        **extra)
                 finally:
                     if self.sink is not None:
                         self.sink.close()   # drain the writer queue

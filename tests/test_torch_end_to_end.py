@@ -162,18 +162,24 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
         main(['-c', str(path), '--silent'])
 
 
+def orbax_warmstart(tmp_path) -> dict:
+    """A ``warmstart_exp_dir`` whose ensemble is an orbax checkpoint."""
+    (tmp_path / 'source' / 'warmstart' / 'orbax').mkdir(parents=True)
+    return {'training.warmstart.warmstart_exp_dir': str(tmp_path / 'source')}
+
+
 @pytest.mark.parametrize('update', [
-    {'training.sampler.stream_samples': True},
     {'training.sampler.data_sharding': 2},
-    {'training.sampler.checkpoint_sampling': True},
     {'training.checkpoint_format': 'orbax'},
-    {'training.warmstart.warmstart_exp_dir': 'elsewhere'},
+    orbax_warmstart,
 ])
 def test_features_not_yet_ported_raise(update, tmp_path):
     from mile_tpu_torch.config import Config
     from mile_tpu_torch.exceptions import NotYetPortedError
     from mile_tpu_torch.train.trainer import BDETrainer
 
+    if callable(update):
+        update = update(tmp_path)
     config = Config.from_dict(tiny_config(tmp_path)).replace(**update)
     with pytest.raises(NotYetPortedError, match='not yet ported'):
         BDETrainer(config, device='cpu')
@@ -220,9 +226,13 @@ def _imports(tree: ast.AST):
 
 
 def test_port_imports_no_jax_and_no_mile_tpu():
-    """Read every module of the port (and chip_smoke.py) as source: no
-    import of jax, flax, optax or mile_tpu anywhere, at any depth."""
-    files = sorted(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    """Read every module of the port, chip_smoke.py and the port's
+    experiment scripts as source: no import of jax, flax, optax or mile_tpu
+    anywhere, at any depth."""
+    files = (sorted(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+             + sorted((ROOT / 'experiments').glob('torch_*.py')))
+    assert ROOT / 'experiments' / 'torch_symmetric_splitting.py' in files
+    assert PACKAGE / 'mcmc' / 'split_hmc.py' in files
     assert len(files) > 30
     banned = ('jax', 'jaxlib', 'flax', 'optax', 'mile_tpu')
     for path in files:
