@@ -63,6 +63,19 @@ torch_symmetric_splitting.py`` runs split HMC at LeNet width (49 shards of
 64 images) with its time per shard gradient and per proposal, and one
 split-leapfrog step on the card is held against the CPU's.
 
+More than one device, on one card, with mesh entries that repeat cuda:0:
+the MCLMC resume run again with ``checkpoint_format='orbax'`` (the
+snapshot through torch.distributed.checkpoint), resumed bit for bit, and a
+trainer writing ``warmstart/orbax/`` that a second trainer reuses; the
+trainer with 13 chains over two entries, padded to 14, with 13 chains in
+every result and on disk; ``run_mclmc`` on the main path's posterior over
+a 4-entry chain mesh and a 2 x 2 chains x data mesh, and 10 steps on each
+mesh held against the one-device steps; two processes joined over gloo
+(this script run again with ``--multiprocess-worker RANK PORT``) whose
+draws equal one process's, with the in-step check and a checkpoint both
+ranks write; LeNet's full-batch gradient over two entries against the
+unsharded one, with both times.
+
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
 JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
@@ -267,6 +280,45 @@ SPLIT_ARGS = ['--source', 'local', '--datapoint-limit', '4096',
               '--num-samples', '3', '--burn', '1']
 SPLIT_SHAPE = (49, 64, 61_706)   # shards, batch, dim
 SPLIT_STEP_RTOL = 1e-4
+# More than one device, on one card: a mesh whose entries repeat cuda:0.
+# The trainer on the main path's config (CUT) with MESH_CHAINS chains over
+# MESH_ENTRIES entries: 13 chains do not divide over 2, so sampling pads
+# them to 14 (7 an entry) and drops the pad chain from every result and
+# from the sink. run_mclmc on the main path's posterior and members over a
+# 4-entry chain mesh and a 2 x 2 chains x data mesh, step counts cut to
+# MESH_RUN_CUT; then MESH_STEPS steps on each mesh, each from the
+# one-device run's state with its injected normals, held against the
+# one-device step as the main path's card-vs-CPU check holds them:
+# positions within atol MESH_X_ATOL, dE within MESH_DE_UNITS float32
+# units of |logp|+|logp'|+|dK| (the 2 x 2 mesh sums each chain's
+# log-likelihood in two halves, which rounds otherwise). The image path's
+# full-batch LeNet value and gradient at the tuned state over a chain mesh
+# of cuda:0 twice against the unsharded one: value rtol GRAD_RTOL,
+# gradient atol GRAD_GTOL max|g| (float32 both; cuDNN may pick other
+# algorithms for 5 chains than for 10).
+MESH_RESULTS = ROOT / 'results' / 'chip_smoke_mesh'
+MESH_CHAINS, MESH_ENTRIES = 13, 2
+MESH_RUN_CUT = {'training.sampler.warmup_steps': 50,
+                'training.sampler.n_samples': 50,
+                'training.sampler.n_thinning': 10}
+MESH_STEPS = 10
+MESH_X_ATOL, MESH_DE_UNITS = 1e-4, 64.0
+# Two processes on cuda:0 joined over gloo (this script run again with
+# --multiprocess-worker), each holding a chain mesh of cuda:0 twice: 4
+# entries over both ranks; run_mclmc on the main path's posterior and
+# members (MESH_RUN_CUT) gives rank 0 the draws of one process's mesh of 4
+# entries, bit for bit; the in-step check raises on ranks that differ; the
+# ensemble goes through torch.distributed.checkpoint written by both
+# ranks and comes back equal.
+MP_RESULTS = ROOT / 'results' / 'chip_smoke_multiprocess'
+MP_SEED = 31
+MP_TIMEOUT_S = 300
+# checkpoint_format: orbax: the MCLMC resume runs stopped after chunk 2
+# and inside chunk 0 with the snapshot as a torch.distributed.checkpoint,
+# each resumed bit for bit; a trainer (CUT, STREAM_EPOCHS warm-start
+# epochs) writing warmstart/orbax/ and a second one reusing it with its
+# npz members gone
+ORBAX_RESULTS = ROOT / 'results' / 'chip_smoke_orbax'
 
 
 class SimulatedStop(Exception):
@@ -663,6 +715,7 @@ class Smoke:
         self._agreement(trainer, result)
         self._profile(trainer, result)
         self.main_run = (trainer, members)
+        self.main_result = result
 
     def _train(self, trainer):
         """``trainer.train()``, as a user calls it (report included), with
@@ -1242,7 +1295,9 @@ Step by step: each card step is held against the same step taken on
                    f'{scfg.n_chains} chains, {n_train} training images of '
                    f'{trainer.loader.input_shape}, likelihood chunks of '
                    f'{scfg.likelihood_chunk_size}; K1/K3 route {route}')
-        self._mclmc_path('image', 'LeNet', trainer, IMAGE_SHAPE, chance=0.1)
+        result = self._mclmc_path('image', 'LeNet', trainer, IMAGE_SHAPE,
+                                  chance=0.1)
+        self.image_run = (trainer, result)
 
     def _mclmc_path(self, key: str, label: str, trainer, shape,
                     chance: float):
@@ -1928,6 +1983,7 @@ Step by step: each card step is held against the same step taken on
                 ('tuned', 'step_size'), ('tuned', 'L')]
         ops.reset_launch_counts()
         full = run('full')
+        self.resume_run = (vg, scfg, members, full)
         self.check(not (RESUME_RESULTS / 'full').exists(),
                    'the uninterrupted run removed its checkpoint directory')
         stops = {'after chunk 2': ('stop2', StopAfter(2)),
@@ -2096,6 +2152,393 @@ Step by step: each card step is held against the same step taken on
                    f'the first run\'s bit for bit')
         self.timings['stream_and_reuse_s'] = {'stream_train': t1 - t0,
                                               'reuse_warmstart': t2 - t1}
+
+    # ---------------------------------------------------- more devices
+    def _card(self):
+        torch = self.torch
+        return torch.device('cuda', torch.cuda.current_device())
+
+    def mesh_path(self):
+        """More than one device on one card (mesh entries repeat cuda:0).
+        BDETrainer on the main path's config with MESH_CHAINS chains over
+        MESH_ENTRIES entries: sampling pads them to a multiple of the
+        entries and drops the pad chains from the draws, the tuned values,
+        the final state and the sink's files; K1 and K3 launched 3 and 1
+        times a step for the padded batch on the first device. Then
+        run_mclmc on the main path's posterior over a 4-entry chain mesh
+        and a 2 x 2 chains x data mesh against one device, and MESH_STEPS
+        steps on each mesh held against the one-device steps."""
+        import numpy as np
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.parallel.mesh import chain_data_mesh, chain_mesh
+        from mile_tpu_torch.train.checkpoint import load_flat_samples
+        from mile_tpu_torch.train.sampling import run_mclmc
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        card = self._card()
+        (config,) = Config.from_file(CONFIG)
+        config = config.replace(
+            saving_dir=str(MESH_RESULTS.parent),
+            experiment_name=MESH_RESULTS.name,
+            **{**CUT, 'training.sampler.n_chains': MESH_CHAINS})
+        scfg = config.training.sampler
+        shutil.rmtree(MESH_RESULTS, ignore_errors=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = BDETrainer(config, devices=[card] * MESH_ENTRIES)
+        members = trainer.train_warmstart()
+        result = trainer.start_sampling(members)
+        metrics = trainer.evaluate(members, result)
+        torch.cuda.synchronize()
+        seconds = {'trainer': time.perf_counter() - t0}
+        k1, k3 = self._launches()
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        n_steps = scfg.warmup_steps + n_kept * scfg.n_thinning
+        n_run = MESH_CHAINS + trainer._pad_chains
+        shapes = {'samples': result.samples.shape[0],
+                  'on disk': load_flat_samples(trainer.samples_dir).shape[0],
+                  'chain dirs': len(list(trainer.samples_dir.glob(
+                      'chain_*'))),
+                  **{f'tuned {k}': v.shape[0]
+                     for k, v in result.tuned.items()},
+                  **{f'info {k}': v.shape[0] for k, v in result.info.items()},
+                  **{f'final {k}': v.shape[0] for k, v in
+                     result.final_state._asdict().items()}}
+        self.check(trainer.mesh.size == 1 and trainer._pad_chains == 1
+                   and trainer._sampling_mesh.size == MESH_ENTRIES
+                   and set(shapes.values()) == {MESH_CHAINS},
+                   f'{MESH_CHAINS} chains over {MESH_ENTRIES} entries of '
+                   f'{card}: divisor mesh {trainer.mesh.size}, sampling mesh '
+                   f'{trainer._sampling_mesh.size}, {n_run} chains run; '
+                   f'chains in every result and on disk {shapes}')
+        self.check(k1 == 3 * n_steps and k3 == n_steps
+                   and bool(np.isfinite(result.samples).all())
+                   and math.isfinite(float(metrics['lppd'])),
+                   f'padded trainer: K1 {k1} (3 x {n_steps} steps), K3 {k3} '
+                   f'(1 x {n_steps}) on the first device for the ({n_run}, '
+                   f'{MAIN_SHAPE[1]}) batch; finite draws; lppd '
+                   f'{float(metrics["lppd"]):.4f}')
+
+        main_trainer, main_members = self.main_run
+        rcfg = main_trainer.config.replace(**MESH_RUN_CUT).training.sampler
+        x, y = main_trainer.loader.arrays('train')
+        meshes = {'one device': None,
+                  '4-entry chain mesh': chain_mesh(4, [card] * 4),
+                  '2 x 2 chains x data mesh': chain_data_mesh(2, 2,
+                                                              [card] * 4)}
+        runs, launches = {}, {}
+        for label, mesh in meshes.items():
+            before = self._launches()
+            t0 = time.perf_counter()
+            runs[label] = run_mclmc(
+                main_trainer.bayes.logdensity_and_grad_fn(x, y, mesh), rcfg,
+                torch.Generator().manual_seed(MP_SEED), main_members,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+            launches[label] = tuple(a - b for a, b in
+                                    zip(self._launches(), before))
+        self.path_launches['mesh'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), self._launches()))
+        n_run_steps = rcfg.warmup_steps + rcfg.n_samples
+        ref = runs['one device']
+        for label, mesh in meshes.items():
+            run = runs[label]
+            same = bool(np.array_equal(run.samples, ref.samples))
+            apart = float(np.abs(run.samples - ref.samples).max())
+            eps = float(np.abs(run.tuned['step_size']
+                               - ref.tuned['step_size']).max())
+            self.check(launches[label] == (3 * n_run_steps, n_run_steps)
+                       and run.samples.shape[0] == MAIN_SHAPE[0]
+                       and bool(np.isfinite(run.samples).all()),
+                       f'run_mclmc over the {label}: K1/K3 {launches[label]}'
+                       f' (3 and 1 x {n_run_steps} steps), finite draws '
+                       f'{run.samples.shape}; against one device: '
+                       + ('bit for bit' if same else
+                          f'draws apart by {apart:.2e}, tuned eps by '
+                          f'{eps:.2e} (the tuner amplifies float32 '
+                          f'rounding)') + f'; {seconds[label]:.2f} s')
+        self.timings['mesh_s'] = seconds
+        self._mesh_steps(main_trainer, self.main_result,
+                         {k: v for k, v in meshes.items() if v is not None})
+
+    def _mesh_steps(self, trainer, result, meshes):
+        """MESH_STEPS steps on each mesh, each from the one-device run's
+        state with the same injected normals, against the one-device
+        step: positions and dE (see MESH_X_ATOL, MESH_DE_UNITS)."""
+        torch = self.torch
+        from mile_tpu_torch.mcmc import mclmc
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        gen = torch.Generator().manual_seed(11)
+        normals = [torch.randn(*MAIN_SHAPE, generator=gen)
+                   for _ in range(MESH_STEPS)]
+        ref_states, ref_infos, _ = self._steps(
+            trainer, result, self.dev, torch.float32, result.final_state,
+            normals)
+        scfg = trainer.config.training.sampler
+        x, y = trainer.loader.arrays('train')
+        tuned = {k: torch.as_tensor(v).to(self.dev)
+                 for k, v in result.tuned.items()}
+        sdc = (tuned['sqrt_diag_cov'] if scfg.diagonal_preconditioning
+               else None)
+        out = {}
+        for label, mesh in meshes.items():
+            vg = trainer.bayes.logdensity_and_grad_fn(x, y, mesh)
+            kernel = mclmc.build_kernel(
+                vg, torch.Generator().manual_seed(0),
+                integrator=scfg.integrator,
+                noise=iter([z.to(self.dev) for z in normals]))
+            dx, units, bitwise = [], [], True
+            with matmul_precision('float32'):
+                for i in range(MESH_STEPS):
+                    start = mclmc.init(ref_states[i].position, vg,
+                                       momentum=ref_states[i].momentum)
+                    state, info = kernel(start, tuned['L'],
+                                         tuned['step_size'], sdc)
+                    want, want_info = ref_states[i + 1], ref_infos[i]
+                    dx.append(float((state.position - want.position)
+                                    .abs().max()))
+                    unit = 2.0 ** -23 * (start.logdensity.abs()
+                                         + info.logdensity.abs()
+                                         + info.kinetic_change.abs())
+                    units.append(float(((info.energy_change
+                                         - want_info.energy_change).abs()
+                                        / unit).max()))
+                    bitwise = bitwise and torch.equal(
+                        state.position, want.position) and torch.equal(
+                        info.energy_change, want_info.energy_change)
+            out[label] = {'max_dx': max(dx), 'max_dE_units': max(units),
+                          'bitwise': bitwise}
+            self.check(max(dx) <= MESH_X_ATOL and max(units) <= MESH_DE_UNITS,
+                       f'{MESH_STEPS} steps over the {label}, each from the '
+                       f'one-device state with the same normals: max|dx| '
+                       f'{max(dx):.2e} (atol {MESH_X_ATOL:g}), dE '
+                       f'{max(units):.1f} float32 units (<= '
+                       f'{MESH_DE_UNITS:g}); '
+                       + ('bit for bit' if bitwise else 'not bit for bit'))
+        self.timings['mesh_steps'] = out
+
+    def image_mesh_gradient(self):
+        """The image path's full-batch LeNet value and gradient at the
+        tuned state (IMAGE_SHAPE, 48,000 images) over a chain mesh of
+        cuda:0 twice (5 chains a shard) against the unsharded one, with
+        the times of both (median of 3 after one warm-up call)."""
+        torch = self.torch
+        from mile_tpu_torch.parallel.mesh import chain_mesh
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        trainer, result = self.image_run
+        card = self._card()
+        x, y = trainer.loader.arrays('train')
+        theta = result.final_state.position
+        fns = {'unsharded': trainer.bayes.logdensity_and_grad_fn(x, y),
+               'mesh': trainer.bayes.logdensity_and_grad_fn(
+                   x, y, chain_mesh(2, [card] * 2))}
+        out, times = {}, {}
+        with matmul_precision(trainer.config.training.sampler
+                              .matmul_precision):
+            for key, vg in fns.items():
+                vg(theta)
+                times[key] = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out[key] = vg(theta)
+                    torch.cuda.synchronize()
+                    times[key].append(1e3 * (time.perf_counter() - t0))
+        (v0, g0), (v1, g1) = out['unsharded'], out['mesh']
+        value_rel = float(((v1 - v0).abs() / v0.abs()).max())
+        grad = float((g1 - g0).abs().max() / g0.abs().max())
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        self.timings['image_mesh_gradient'] = {
+            'ms': times, 'value_rel': value_rel, 'grad_over_max': grad,
+            'bitwise': bool(torch.equal(v0, v1) and torch.equal(g0, g1))}
+        self.check(value_rel <= GRAD_RTOL and grad <= GRAD_GTOL,
+                   f'LeNet value and gradient {tuple(theta.shape)} on '
+                   f'{x.shape[0]} images over a chain mesh of {card} twice '
+                   f'vs unsharded: value rel {value_rel:.1e} (rtol '
+                   f'{GRAD_RTOL:g}), gradient {grad:.1e} max|g| (atol '
+                   f'{GRAD_GTOL:g}); {ms["mesh"]:.1f} ms on the mesh, '
+                   f'{ms["unsharded"]:.1f} ms unsharded (medians of 3)')
+
+    def multiprocess(self):
+        """Two processes (this script with --multiprocess-worker) joined
+        over gloo, each with a chain mesh of cuda:0 twice: rank 0's draws
+        equal one process's over 4 entries bit for bit, the in-step check
+        raised on differing arrays, and the members came back from the
+        checkpoint both ranks wrote."""
+        import numpy as np
+        import shutil
+        import socket
+
+        torch = self.torch
+        from mile_tpu_torch.parallel.mesh import chain_mesh
+
+        card = self._card()
+        shutil.rmtree(MP_RESULTS, ignore_errors=True)
+        MP_RESULTS.mkdir(parents=True)
+        members = self.main_run[1]
+        np.save(MP_RESULTS / 'members.npy', members.cpu().numpy())
+        with socket.socket() as sock:
+            sock.bind(('localhost', 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / 'chip_smoke.py'),
+             '--multiprocess-worker', str(rank), str(port)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=MP_TIMEOUT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        workers_s = time.perf_counter() - t0
+        for rank, (proc, log) in enumerate(zip(procs, logs)):
+            for line in log.splitlines()[-6:]:
+                print(f'    rank {rank}: {line}')
+        ok = all(p.returncode == 0 and f'rank {r} ok' in log
+                 for r, (p, log) in enumerate(zip(procs, logs)))
+        self.check(ok, f'two worker processes over gloo exited 0 '
+                       f'({[p.returncode for p in procs]}) in '
+                       f'{workers_s:.1f} s')
+        if not ok:
+            return
+        bayes, x, y, scfg = airfoil_posterior(card)
+        before = self._launches()
+        t0 = time.perf_counter()
+        ref = multiprocess_run(bayes, x, y, scfg, members,
+                               chain_mesh(4, [card] * 4))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        self.path_launches['multiprocess'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'),
+            (a - b for a, b in zip(self._launches(), before))))
+        with np.load(MP_RESULTS / 'rank0.npz') as got:
+            got = dict(got)
+        n_steps = scfg.warmup_steps + scfg.n_samples
+        same = bool(np.array_equal(got['samples'], ref.samples))
+        apart = float(np.abs(got['samples'] - ref.samples).max())
+        self.check(same and int(got['mesh_size']) == 4
+                   and tuple(got['launches']) == (3 * n_steps, n_steps),
+                   f'rank 0 of 2 (mesh of {int(got["mesh_size"])} entries '
+                   f'over both ranks) vs one process over 4 entries: draws '
+                   f'{got["samples"].shape} '
+                   + ('equal bit for bit' if same else
+                      f'apart by {apart:.2e}') + f'; rank 0 launched K1/K3 '
+                   f'{tuple(got["launches"])} (3 and 1 x {n_steps}); one '
+                   f'process {one_s:.2f} s')
+        self.check(bool(got['guard_raised']),
+                   'the in-step check raised on ranks holding different '
+                   'arrays')
+        self.check(np.array_equal(got['restored'], members.cpu().numpy()),
+                   'the members written by both ranks through '
+                   'torch.distributed.checkpoint came back equal')
+        self.timings['multiprocess_s'] = {'workers': workers_s,
+                                          'one_process': one_s}
+
+    def orbax_format(self):
+        """``checkpoint_format='orbax'``: the MCLMC resume runs again, stopped
+        after chunk 2 and, apart, inside chunk 0, with the snapshot in
+        torch.distributed.checkpoint's format, each resumed bit for bit
+        with K1/K3 launched 3 and 1 times per step left; a trainer writing
+        warmstart/orbax/ and a second trainer reusing it with the npz
+        members gone, bit for bit."""
+        import shutil
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train import sampling
+        from mile_tpu_torch.train.trainer import BDETrainer
+
+        vg, scfg, members, full = self.resume_run
+        n_chains, dim = MAIN_SHAPE
+        shutil.rmtree(ORBAX_RESULTS, ignore_errors=True)
+        ckpt_dir = ORBAX_RESULTS / 'resume'
+
+        def run(**kwargs):
+            return sampling.run_mclmc(
+                vg, scfg, torch.Generator().manual_seed(RESUME_SEED),
+                members, max_chunk_bytes=RESUME_CHUNK_KEPT * n_chains * dim
+                * 4, checkpoint_dir=ckpt_dir, checkpoint_format='orbax',
+                **kwargs)
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_kept = math.ceil(scfg.n_samples / scfg.n_thinning)
+        keys = [('info', 'energy_change'), ('info', 'energy_change_sq'),
+                ('tuned', 'step_size'), ('tuned', 'L')]
+        stops = {'after chunk 2': (StopAfter(2), 2 * RESUME_CHUNK_KEPT),
+                 'inside chunk 0': (None, 0)}
+        for label, (sink, done) in stops.items():
+            push = sampling.Drain.push
+            if sink is None:   # stop before the first chunk is drained
+                def halt(*args, **kwargs):
+                    raise SimulatedStop('inside chunk 0')
+                sampling.Drain.push = halt
+            try:
+                run(sample_sink=sink)
+                stopped = False
+            except SimulatedStop:
+                stopped = True
+            finally:
+                sampling.Drain.push = push
+            snapshot = (ckpt_dir / 'sampler_state_orbax' / 'step_0'
+                        / '.metadata').is_file() and not (
+                            ckpt_dir / 'sampler_state.npz').exists()
+            before = self._launches()
+            resumed = run()
+            k1, k3 = (a - b for a, b in zip(self._launches(), before))
+            left = (n_kept - done) * scfg.n_thinning
+            same = self._equal(resumed, full, keys)
+            self.check(stopped and snapshot and all(same.values())
+                       and (k1, k3) == (3 * left, left)
+                       and not ckpt_dir.exists(),
+                       f'MCLMC with checkpoint_format orbax stopped {label} '
+                       f'(snapshot as a torch.distributed.checkpoint: '
+                       f'{snapshot}) and resumed: bitwise equal to the '
+                       f'uninterrupted run {same}; K1 {k1} (3 x {left} '
+                       f'steps left), K3 {k3}; checkpoint removed')
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.path_launches['orbax'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), self._launches()))
+
+        (config,) = Config.from_file(CONFIG)
+        config = config.replace(
+            saving_dir=str(ORBAX_RESULTS), experiment_name='first',
+            **{**CUT, 'training.warmstart.max_epochs': STREAM_EPOCHS,
+               'training.checkpoint_format': 'orbax'})
+        first = BDETrainer(config, device=self.dev)
+        written = first.train_warmstart()
+        metadata = (first.warmstart_dir / 'orbax' / 'step_0'
+                    / '.metadata').is_file()
+        for path in first.warmstart_dir.glob('params_*.npz'):
+            path.unlink()
+        second = BDETrainer(config.replace(
+            experiment_name='second',
+            **{'training.warmstart.warmstart_exp_dir': str(first.exp_dir)}),
+            device=self.dev)
+        reused = second.train_warmstart()
+        torch.cuda.synchronize()
+        self.check(metadata and torch.equal(written, reused)
+                   and (second.warmstart_dir / 'params_0.npz').is_file(),
+                   f'checkpoint_format orbax: warmstart/orbax/ written '
+                   f'({metadata}); a second trainer reused it with the npz '
+                   f'members gone: {tuple(reused.shape)} members bit for '
+                   f'bit')
+        self.timings['orbax_format_s'] = {
+            'resume': t1 - t0, 'trainers': time.perf_counter() - t1}
 
     # ---------------------------------------------------------- split HMC
     def _split_module(self):
@@ -2336,6 +2779,86 @@ Step by step: each card step is held against the same step taken on
                 print(f'  {key} {json.dumps(row)}')
 
 
+def airfoil_posterior(device):
+    """The main path's posterior (airfoil, FCN [16, 16, 16, 2], the config's
+    data split) on ``device``, built as the trainer builds it, and the
+    sampler config at CUT and MESH_RUN_CUT: (bayes, x, y, sampler config).
+    """
+    from mile_tpu_torch.bayes import BayesianModel
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.data import build_loader
+    from mile_tpu_torch.utils.keys import experiment_keys
+
+    (config,) = Config.from_file(CONFIG)
+    config = config.replace(**{**CUT, **MESH_RUN_CUT})
+    scfg = config.training.sampler
+    loader = build_loader(config.data, experiment_keys(config.rng).loader,
+                          device, target_len=config.data.target_len,
+                          tokenizer_config=config.training.tokenizer)
+    bayes = BayesianModel(
+        config.get_model(loader.input_shape), scfg.prior_config.build(),
+        config.data.task, likelihood_chunk_size=scfg.likelihood_chunk_size,
+        compute_dtype=scfg.compute_dtype)
+    x, y = loader.arrays('train')
+    return bayes, x, y, scfg
+
+
+def multiprocess_run(bayes, x, y, scfg, members, mesh):
+    """run_mclmc of the multi-process phase over ``mesh``."""
+    import torch
+
+    from mile_tpu_torch.train.sampling import run_mclmc
+
+    return run_mclmc(bayes.logdensity_and_grad_fn(x, y, mesh), scfg,
+                     torch.Generator().manual_seed(MP_SEED), members,
+                     mesh=mesh)
+
+
+def multiprocess_worker(rank: int, port: int) -> int:
+    """One rank of the multi-process phase: join the gloo group of 2 at
+    ``localhost:port``, run :func:`multiprocess_run` over a chain mesh of
+    cuda:0 twice on each rank, try the in-step check on arrays that differ
+    by rank, write and read the members through torch.distributed.
+    checkpoint with the other rank; rank 0 writes what it got."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from mile_tpu_torch.ops import isokinetic as ops
+    from mile_tpu_torch.parallel import distributed
+    from mile_tpu_torch.parallel.mesh import chain_mesh
+    from mile_tpu_torch.train.checkpoint_orbax import (
+        load_ensemble,
+        save_ensemble,
+    )
+
+    distributed.initialize_distributed(f'localhost:{port}', 2, rank)
+    group = distributed.process_group()
+    card = torch.device('cuda', torch.cuda.current_device())
+    bayes, x, y, scfg = airfoil_posterior(card)
+    members = torch.from_numpy(np.load(MP_RESULTS / 'members.npy')).to(card)
+    mesh = chain_mesh(devices=[card] * 2, group=group)
+    ops.reset_launch_counts()
+    result = multiprocess_run(bayes, x, y, scfg, members, mesh)
+    torch.cuda.synchronize()
+    launches = (ops.isokinetic_momentum.launches, ops.partial_refresh.launches)
+    try:
+        distributed.check_in_step(np.full(3, rank), group)
+        guard_raised = False
+    except RuntimeError as exc:
+        guard_raised = 'out of step' in str(exc)
+    save_ensemble(MP_RESULTS / 'dcp', {'members': members})
+    restored = load_ensemble(MP_RESULTS / 'dcp')['members']
+    if rank == 0:
+        np.savez(MP_RESULTS / 'rank0.npz', samples=result.samples,
+                 restored=restored.numpy(), launches=np.array(launches),
+                 guard_raised=guard_raised, mesh_size=mesh.size)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f'rank {rank} ok', flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2366,15 +2889,25 @@ def main() -> int:
                     smoke.k3)
         if smoke.phase('main path: BDETrainer on airfoil, 12 chains, dim '
                        '674', smoke.main_path):
-            smoke.phase('MCLMC resume: run_mclmc stopped and resumed on the '
-                        'main path\'s posterior, 12 chains, dim 674',
-                        smoke.mclmc_resume)
+            if smoke.phase('MCLMC resume: run_mclmc stopped and resumed on '
+                           'the main path\'s posterior, 12 chains, dim 674',
+                           smoke.mclmc_resume):
+                smoke.phase('orbax format: the resume snapshot and the warm '
+                            'start through torch.distributed.checkpoint',
+                            smoke.orbax_format)
+            smoke.phase('mesh: 13 chains over cuda:0 twice, run_mclmc over '
+                        '4 and 2 x 2 entries, 12 chains, dim 674',
+                        smoke.mesh_path)
+            smoke.phase('multi-process: 2 ranks over gloo on cuda:0, '
+                        'run_mclmc, 12 chains, dim 674', smoke.multiprocess)
         smoke.phase('stream_samples and warmstart_exp_dir: BDETrainer on '
                     'airfoil, 12 chains, dim 674', smoke.stream_and_reuse)
         smoke.phase('partition path: BDETrainer on energy PartitionFCN, 12 '
                     'chains, dim 2,082, subspace 178', smoke.partition_path)
-        smoke.phase('image path: BDETrainer on LeNet, 10 chains, dim 61,706',
-                    smoke.image_path)
+        if smoke.phase('image path: BDETrainer on LeNet, 10 chains, dim '
+                       '61,706', smoke.image_path):
+            smoke.phase('image gradient on a mesh: LeNet, 10 chains, dim '
+                        '61,706, over cuda:0 twice', smoke.image_mesh_gradient)
         smoke.phase('text path: BDETrainer on AttentionClassifier, 8 chains, '
                     'dim 65,248', smoke.text_path)
         if smoke.phase('NUTS path: BDETrainer on airfoil NUTS, 12 chains, '
@@ -2410,7 +2943,8 @@ def main() -> int:
             'source': f'mile_tpu_torch/csrc/isokinetic.cu ({source_fn})',
             'replaces': replaces,
             # the airfoil, partition, image and text paths, the MCLMC
-            # resume phase and the streaming trainer
+            # resume phase, the streaming trainer, the mesh, the
+            # multi-process phase's one-process run and the orbax resume
             'launches': smoke.launches.get(name, 0) + sum(
                 path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,
@@ -2430,4 +2964,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--multiprocess-worker']:
+        sys.exit(multiprocess_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -131,13 +131,24 @@ class BayesianModel:
         return (self.log_prior(theta)
                 + self.n_batches * self.log_likelihood(theta, x, y))
 
-    def logdensity_fn(self, x, y) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Close over the (device-resident) training data -> ``(C,)`` density."""
+    def logdensity_fn(self, x, y, mesh=None
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Close over the (device-resident) training data -> ``(C,)``
+        density, differentiable in ``theta``. With a ``mesh`` (a
+        :class:`~mile_tpu_torch.parallel.mesh.ChainMesh` of more than one
+        entry) its value and gradient are computed shard by shard over the
+        mesh (:class:`~mile_tpu_torch.bayes.sharded.ShardedLogDensity`); a
+        one-entry mesh of one process is no mesh."""
+        if mesh is not None and (mesh.size > 1 or mesh.group is not None):
+            from mile_tpu_torch.bayes.sharded import ShardedLogDensity
+
+            return ShardedLogDensity(self, x, y, mesh)
         return lambda theta: self.log_posterior(theta, x, y)
 
-    def logdensity_and_grad_fn(self, x, y):
-        """The sampler's hot function: ``theta (C, dim) -> ((C,), (C, dim))``."""
-        return value_and_grad(self.logdensity_fn(x, y))
+    def logdensity_and_grad_fn(self, x, y, mesh=None):
+        """The sampler's hot function: ``theta (C, dim) -> ((C,), (C, dim))``
+        (over ``mesh``, as :meth:`logdensity_fn`)."""
+        return value_and_grad(self.logdensity_fn(x, y, mesh))
 
     def shard_potential_fn(self, x_shards, y_shards) -> Callable:
         """``U_j(theta)`` for :mod:`mile_tpu_torch.mcmc.split_hmc`:

@@ -22,6 +22,11 @@ the port stores its own random state as ``rng_*`` entries:
 - NUTS and HMC: the sampling ``Draws`` generator's ``get_state()``
   (``rng_generator_state``), put back with ``set_state`` on a generator of
   the chains' device.
+
+With ``fmt='orbax'`` the snapshot (state, random state and tuned values)
+goes through :mod:`mile_tpu_torch.train.checkpoint_orbax` into
+``sampler_state_orbax/step_0/``, as the JAX package routes it through
+orbax; the drained chunks stay npz in both formats.
 """
 from __future__ import annotations
 
@@ -29,16 +34,16 @@ import hashlib
 import json
 import logging
 import os
+import shutil
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from mile_tpu_torch.exceptions import NotYetPortedError
-
 logger = logging.getLogger(__name__)
 
 _SNAPSHOT = 'sampler_state.npz'
+_SNAPSHOT_ORBAX = 'sampler_state_orbax'
 _META = 'sampler_meta.json'
 _WARMUP_TRACE = 'warmup_trace.npy'
 
@@ -53,21 +58,29 @@ def generator_digest(generator: torch.Generator) -> str:
 class SamplerCheckpoint:
     """Atomic snapshot and drained-chunk store under one directory.
 
-    Every write goes to a ``.tmp`` file first and is moved over the target
-    with ``os.replace``. ``fmt='orbax'`` is not ported and raises."""
+    Every write goes to a ``.tmp`` file (or directory) first and is moved
+    over the target. ``fmt``: ``'npz'`` or ``'orbax'`` (the snapshot as a
+    ``torch.distributed.checkpoint``). ``writer=False`` (the ranks other
+    than 0 of a multi-process run) makes every write a no-op: the ranks
+    share the directory, and rank 0 writes it."""
 
     def __init__(self, directory: str | Path, fingerprint: dict,
-                 fmt: str = 'npz'):
-        if fmt == 'orbax':
-            raise NotYetPortedError('orbax checkpoints')
+                 fmt: str = 'npz', writer: bool = True):
+        if fmt not in ('npz', 'orbax'):
+            raise ValueError(f"checkpoint format must be 'npz' or 'orbax', "
+                             f'got {fmt!r}')
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.fmt, self.writer = fmt, writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         # every value that decides the draws is in the fingerprint: a
         # checkpoint made under other settings is ignored
         self.fingerprint = {k: (v.tolist() if isinstance(v, np.ndarray)
                                 else v) for k, v in fingerprint.items()}
 
     def _write(self, name: str, write) -> None:
+        if not self.writer:
+            return
         tmp = self.dir / (name + '.tmp')
         with open(tmp, 'wb') as f:
             write(f)
@@ -78,10 +91,20 @@ class SamplerCheckpoint:
              kept_done: int) -> None:
         """Atomically overwrite the snapshot, then the meta file that
         points at it."""
-        arrays = {f'state_{k}': np.asarray(v) for k, v in state_leaves.items()}
-        arrays.update({f'rng_{k}': np.asarray(v) for k, v in rng.items()})
-        arrays.update({f'tuned_{k}': np.asarray(v) for k, v in tuned.items()})
-        self._write(_SNAPSHOT, lambda f: np.savez(f, **arrays))
+        parts = {'state': state_leaves, 'rng': rng, 'tuned': tuned}
+        if self.fmt == 'orbax':
+            if self.writer:
+                from mile_tpu_torch.train.checkpoint_orbax import save_ensemble
+
+                save_ensemble(self.dir / _SNAPSHOT_ORBAX, {
+                    part: {k: np.asarray(v) for k, v in leaves.items()}
+                    for part, leaves in parts.items()}, step=0,
+                    collective=False)
+        else:
+            arrays = {f'{part}_{k}': np.asarray(v)
+                      for part, leaves in parts.items()
+                      for k, v in leaves.items()}
+            self._write(_SNAPSHOT, lambda f: np.savez(f, **arrays))
         meta = {'fingerprint': self.fingerprint, 'kept_done': int(kept_done)}
         self._write(_META, lambda f: f.write(json.dumps(meta).encode()))
 
@@ -105,7 +128,9 @@ class SamplerCheckpoint:
     def load(self):
         """(state_leaves, rng, tuned, kept_done), or None when there is no
         snapshot or it belongs to another run (logged as a warning)."""
-        meta_path, snap_path = self.dir / _META, self.dir / _SNAPSHOT
+        meta_path = self.dir / _META
+        snap_path = self.dir / (_SNAPSHOT_ORBAX if self.fmt == 'orbax'
+                                else _SNAPSHOT)
         if not (meta_path.exists() and snap_path.exists()):
             return None
         meta = json.loads(meta_path.read_text())
@@ -114,13 +139,21 @@ class SamplerCheckpoint:
                 'sampler checkpoint at %s belongs to a different run '
                 '(fingerprint mismatch) — ignoring it', self.dir)
             return None
-        with np.load(snap_path) as d:
-            parts = {prefix: {k[len(prefix):]: d[k] for k in d.files
-                              if k.startswith(prefix)}
-                     for prefix in ('state_', 'rng_', 'tuned_')}
+        if self.fmt == 'orbax':
+            from mile_tpu_torch.train.checkpoint_orbax import load_ensemble
+
+            tree = load_ensemble(snap_path, collective=False)
+            parts = {part: {k: v.numpy()
+                            for k, v in tree.get(part, {}).items()}
+                     for part in ('state', 'rng', 'tuned')}
+        else:
+            with np.load(snap_path) as d:
+                parts = {part: {k[len(part) + 1:]: d[k] for k in d.files
+                                if k.startswith(part + '_')}
+                         for part in ('state', 'rng', 'tuned')}
         logger.info('resuming sampler from %s at %d kept draws',
                     self.dir, meta['kept_done'])
-        return (parts['state_'], parts['rng_'], parts['tuned_'],
+        return (parts['state'], parts['rng'], parts['tuned'],
                 int(meta['kept_done']))
 
     def load_chunks(self) -> tuple[list, list]:
@@ -138,6 +171,9 @@ class SamplerCheckpoint:
     def clear(self) -> None:
         """Remove the snapshot and the chunks after a successful run, and
         the directory if nothing else is in it."""
+        if not self.writer:
+            return
+        shutil.rmtree(self.dir / _SNAPSHOT_ORBAX, ignore_errors=True)
         for path in self.dir.glob('chunk_*.npz'):
             path.unlink()
         for name in (_SNAPSHOT, _META, _WARMUP_TRACE):

@@ -11,6 +11,13 @@ start)`` when one is given (the native sink writes it to disk on its own
 thread). With ``checkpoint_dir`` each drained chunk is also a checkpoint
 (:mod:`mile_tpu_torch.train.resume`), copied with the state as of its
 end.
+
+With a ``mesh`` (:mod:`mile_tpu_torch.parallel.mesh`) the chain batch,
+the tuner, the kernels and all randomness stay on the mesh's first
+device; the mesh shards the log-density it was built into
+(``BayesianModel.logdensity_and_grad_fn(x, y, mesh)``). Across processes
+every rank runs this loop on the same state: rank 0 writes the
+checkpoint, and at each drained chunk the ranks compare their draws.
 """
 from __future__ import annotations
 
@@ -116,12 +123,17 @@ class Drain:
     SamplerCheckpoint`), each drained chunk is persisted first, then the
     snapshot that points past it (with ``tuned``), and only then is the
     sink called: a run stopped in between resumes from the snapshot before
-    and writes the chunk again."""
+    and writes the chunk again.
+
+    With a ``mesh`` whose chains axis spans processes, the ranks first
+    check that their chunks are equal (:func:`~mile_tpu_torch.parallel.
+    distributed.check_in_step`)."""
 
     def __init__(self, sample_sink: Optional[Callable] = None,
-                 checkpoint=None, tuned: Optional[dict] = None):
+                 checkpoint=None, tuned: Optional[dict] = None, mesh=None):
         self.sample_sink = sample_sink
         self.checkpoint, self.tuned = checkpoint, tuned
+        self.group = None if mesh is None else mesh.group
         self.host_chunks, self.info_chunks = [], []
         self.pending: Optional[tuple] = None
 
@@ -150,6 +162,10 @@ class Drain:
         self.pending = None
         out = egress.result()
         positions = out.pop('positions')
+        if self.group is not None:
+            from mile_tpu_torch.parallel.distributed import check_in_step
+
+            check_in_step(positions, self.group)
         self.host_chunks.append(positions)
         self.info_chunks.append(out)
         if snapshot is not None:
@@ -177,16 +193,17 @@ class Drain:
 
 
 def open_checkpoint(checkpoint_dir, checkpoint_format: str,
-                    fingerprint: dict, generator: torch.Generator):
+                    fingerprint: dict, generator: torch.Generator,
+                    mesh=None):
     """The checkpoint under ``checkpoint_dir`` (None without one) and what
     it resumes from (None: a fresh run). ``fingerprint`` gets the digest of
     ``generator``'s state at entry, where the JAX runtimes put their run
-    key."""
+    key. Only the primary rank of ``mesh`` writes it."""
     if checkpoint_dir is None:
         return None, None
     checkpoint = SamplerCheckpoint(
         checkpoint_dir, {**fingerprint, 'rng': generator_digest(generator)},
-        fmt=checkpoint_format)
+        fmt=checkpoint_format, writer=mesh is None or mesh.is_primary)
     return checkpoint, checkpoint.load()
 
 
@@ -195,7 +212,8 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
               max_chunk_bytes: int = 1 << 30,
               sample_sink: Optional[Callable] = None,
               checkpoint_dir=None,
-              checkpoint_format: str = 'npz') -> SamplingResult:
+              checkpoint_format: str = 'npz',
+              mesh=None) -> SamplingResult:
     """Warmup, then ``n_samples`` kernel steps per chain, keeping every
     ``n_thinning``-th position, with per-draw mean and mean square of ΔE
     over each thin block. The tuner runs under
@@ -209,10 +227,17 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
     gives the uninterrupted run's draws bit for bit. The sink then receives
     only the chunks not yet drained. The directory is removed on success.
 
+    ``mesh``: the mesh ``logdensity_and_grad`` is sharded over; the
+    positions go to its first device, and across processes the ranks
+    check each chunk against each other and only rank 0 writes the
+    checkpoint.
+
     ``seconds['sampling']`` runs from the end of the tuner (which ends on
     a host read of the tuned ε) to the arrival of the last draws on the
     host, so it times every step, accumulation and copy of the draws.
     """
+    if mesh is not None:
+        init_positions = init_positions.to(mesh.first)
     n_chains, dim = init_positions.shape
     device = init_positions.device
     thin = cfg.n_thinning
@@ -223,7 +248,7 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
         checkpoint_dir, checkpoint_format,
         {'n_chains': n_chains, 'dim': dim, 'n_samples': cfg.n_samples,
          'n_thinning': thin, 'chunk_kept': chunk_kept,
-         'use_warmup_as_init': cfg.use_warmup_as_init}, generator)
+         'use_warmup_as_init': cfg.use_warmup_as_init}, generator, mesh)
 
     t0 = time.perf_counter()
     if resumed is not None:
@@ -269,7 +294,7 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
         sqrt_diag_cov = torch.ones(n_chains, dim)
     tuned = {k: v.cpu().numpy() for k, v in params._replace(
         sqrt_diag_cov=sqrt_diag_cov)._asdict().items()}
-    drain = Drain(sample_sink, checkpoint, tuned)
+    drain = Drain(sample_sink, checkpoint, tuned, mesh)
     if resumed is not None:   # the chunks the stopped run drained
         drain.host_chunks, drain.info_chunks = checkpoint.load_chunks()
     elif checkpoint is not None:
@@ -314,7 +339,8 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
 def run_sampler(logdensity_and_grad: Callable, cfg: SamplerConfig,
                 generator: torch.Generator, init_positions: torch.Tensor,
                 **kwargs) -> SamplingResult:
-    """Dispatch on the configured sampling algorithm."""
+    """Dispatch on the configured sampling algorithm (``kwargs``, the
+    ``mesh`` among them, go to the runtime)."""
     if cfg.epoch_wise_sampling:
         # reserved in the JAX package too
         raise SamplerNotImplementedError(EPOCH_WISE_MESSAGE)

@@ -9,8 +9,8 @@ over every chain's frozen base (:mod:`mile_tpu_torch.bayes.partition`), so
 the adaptation, the re-init and every step see the subspace. With
 ``checkpoint_dir`` a stopped run resumes bit for bit, as ``run_mclmc``
 does, from the sampling ``Draws`` generator's state as of the last drained
-chunk. The device mesh is not ported yet: the trainer refuses the configs
-that ask for it.
+chunk. With a ``mesh`` the batch and its randomness stay on the mesh's
+first device and the mesh shards the log-density, as in ``run_mclmc``.
 """
 from __future__ import annotations
 
@@ -72,14 +72,15 @@ def run_hmc_family(logdensity_and_grad: Callable, cfg: SamplerConfig,
                    max_chunk_bytes: int = 1 << 30,
                    sample_sink: Optional[Callable] = None,
                    checkpoint_dir=None,
-                   checkpoint_format: str = 'npz') -> SamplingResult:
+                   checkpoint_format: str = 'npz',
+                   mesh=None) -> SamplingResult:
     """Window adaptation, then ``n_samples`` NUTS or HMC steps per chain,
     keeping every ``n_thinning``-th position with its block's aggregated
     statistics; each chunk of draws on the host goes to
     ``sample_sink(chunk, start)``. ``checkpoint_dir``: mid-chain resume,
     as in :func:`~mile_tpu_torch.train.sampling.run_mclmc` (a resumed run's
     ``tuned`` holds only ``step_size`` and ``inverse_mass_matrix``, as the
-    JAX runtime's).
+    JAX runtime's). ``mesh``: as in ``run_mclmc``.
 
     Metropolis-corrected samplers read O(1) energy differences of
     log-densities of order 10³-10⁴, so the whole runtime runs in exact
@@ -89,12 +90,14 @@ def run_hmc_family(logdensity_and_grad: Callable, cfg: SamplerConfig,
     with matmul_precision('float32'):
         return _run_hmc_family(logdensity_and_grad, cfg, generator,
                                init_positions, max_chunk_bytes, sample_sink,
-                               checkpoint_dir, checkpoint_format)
+                               checkpoint_dir, checkpoint_format, mesh)
 
 
 def _run_hmc_family(logdensity_and_grad, cfg, generator, init_positions,
                     max_chunk_bytes, sample_sink, checkpoint_dir,
-                    checkpoint_format) -> SamplingResult:
+                    checkpoint_format, mesh) -> SamplingResult:
+    if mesh is not None:
+        init_positions = init_positions.to(mesh.first)
     n_chains, dim = init_positions.shape
     device = init_positions.device
 
@@ -120,7 +123,8 @@ def _run_hmc_family(logdensity_and_grad, cfg, generator, init_positions,
          'n_samples': cfg.n_samples, 'n_thinning': thin,
          'chunk_kept': chunk_kept,
          'use_warmup_as_init': cfg.use_warmup_as_init,
-         'num_integration_steps': cfg.num_integration_steps}, generator)
+         'num_integration_steps': cfg.num_integration_steps}, generator,
+        mesh)
 
     t0 = time.perf_counter()
     if resumed is not None:
@@ -173,7 +177,7 @@ def _run_hmc_family(logdensity_and_grad, cfg, generator, init_positions,
     # ---------------------------------------------------------- sampling
     draws_generator = kernel.draws.generator
     random_state = lambda: {'generator_state': draws_generator.get_state()}
-    drain = Drain(sample_sink, checkpoint, tuned)
+    drain = Drain(sample_sink, checkpoint, tuned, mesh)
     if resumed is not None:   # the chunks the stopped run drained
         drain.host_chunks, drain.info_chunks = checkpoint.load_chunks()
     elif checkpoint is not None:

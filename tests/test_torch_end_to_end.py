@@ -162,42 +162,50 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch, tmp_path):
         main(['-c', str(path), '--silent'])
 
 
-def orbax_warmstart(tmp_path) -> dict:
-    """A ``warmstart_exp_dir`` whose ensemble is an orbax checkpoint."""
-    (tmp_path / 'source' / 'warmstart' / 'orbax').mkdir(parents=True)
-    return {'training.warmstart.warmstart_exp_dir': str(tmp_path / 'source')}
-
-
-@pytest.mark.parametrize('update', [
-    {'training.sampler.data_sharding': 2},
-    {'training.checkpoint_format': 'orbax'},
-    orbax_warmstart,
-])
-def test_features_not_yet_ported_raise(update, tmp_path):
+@pytest.mark.parametrize('feature', ['data_sharding', 'orbax_format',
+                                     'orbax_warmstart'])
+def test_features_once_refused_now_run(feature, tmp_path):
+    """The three configs the port refused until it had a mesh and the
+    orbax format: ``data_sharding: 2`` samples over a chains x data mesh
+    of CPU entries; ``checkpoint_format: orbax`` writes the ensemble as a
+    ``torch.distributed.checkpoint`` beside the npz members; a
+    ``warmstart_exp_dir`` holding such a ``warmstart/orbax/`` (and no npz
+    members) is reused bit for bit."""
     from mile_tpu_torch.config import Config
-    from mile_tpu_torch.exceptions import NotYetPortedError
+    from mile_tpu_torch.train.checkpoint_orbax import load_ensemble
     from mile_tpu_torch.train.trainer import BDETrainer
 
-    if callable(update):
-        update = update(tmp_path)
+    update = {'data_sharding': {'training.sampler.data_sharding': 2}}.get(
+        feature, {'training.checkpoint_format': 'orbax'})
     config = Config.from_dict(tiny_config(tmp_path)).replace(**update)
-    with pytest.raises(NotYetPortedError, match='not yet ported'):
-        BDETrainer(config, device='cpu')
+    trainer = BDETrainer(config, device='cpu', n_devices=8)
+    if feature == 'data_sharding':
+        assert trainer.mesh.shape == {'chains': 2, 'data': 2}
+        metrics = trainer.train(report=False)
+        assert np.isfinite(metrics['lppd'])
+        samples = jax_ckpt.load_flat_samples(trainer.samples_dir)
+        assert samples.shape == (2, 8, 674) and np.isfinite(samples).all()
+        return
+    members = trainer.train_warmstart()
+    saved = load_ensemble(trainer.warmstart_dir / 'orbax')['members']
+    assert (trainer.warmstart_dir / 'orbax/step_0/.metadata').is_file()
+    assert torch.equal(saved, members)
+    if feature == 'orbax_warmstart':
+        for path in trainer.warmstart_dir.glob('params_*.npz'):
+            path.unlink()
+        reuse = config.replace(**{
+            'experiment_name': 'reuse',
+            'training.warmstart.warmstart_exp_dir': str(trainer.exp_dir)})
+        second = BDETrainer(reuse, device='cpu')
+        assert torch.equal(second.train_warmstart(), members)
+        assert (second.warmstart_dir / 'params_1.npz').is_file()
 
 
-def test_more_than_one_device_and_reports_raise(tmp_path, monkeypatch,
-                                                caplog):
-    """More than one device raises; a report that raises is logged by the
-    trainer, which still returns its metrics (as the JAX trainer does)."""
-    from mile_tpu_torch.cli import main
-    from mile_tpu_torch.exceptions import NotYetPortedError
-    from mile_tpu_torch.inference import reporting
-
-    path = tmp_path / 'tiny.yaml'
-    path.write_text(yaml.safe_dump(tiny_config(tmp_path)))
-    with pytest.raises(NotYetPortedError):
-        main(['-c', str(path), '--device', 'cpu', '--devices', '2'])
+def test_a_report_that_raises_is_logged(tmp_path, monkeypatch, caplog):
+    """A report that raises is logged by the trainer, which still returns
+    its metrics (as the JAX trainer does)."""
     from mile_tpu_torch.config import Config
+    from mile_tpu_torch.inference import reporting
     from mile_tpu_torch.train.trainer import BDETrainer
 
     def broken(*args, **kwargs):
@@ -233,6 +241,10 @@ def test_port_imports_no_jax_and_no_mile_tpu():
              + sorted((ROOT / 'experiments').glob('torch_*.py')))
     assert ROOT / 'experiments' / 'torch_symmetric_splitting.py' in files
     assert PACKAGE / 'mcmc' / 'split_hmc.py' in files
+    for name in ('parallel/__init__.py', 'parallel/mesh.py',
+                 'parallel/distributed.py', 'bayes/sharded.py',
+                 'train/checkpoint_orbax.py'):
+        assert PACKAGE / name in files
     assert len(files) > 30
     banned = ('jax', 'jaxlib', 'flax', 'optax', 'mile_tpu')
     for path in files:

@@ -2,7 +2,8 @@
 against the JAX package's contract and files.
 
 A resumed MCLMC, NUTS or HMC run gives the uninterrupted run's draws,
-per-draw statistics and tuned parameters bit for bit, without the tuner;
+per-draw statistics and tuned parameters bit for bit, without the tuner,
+with the snapshot in the npz or the orbax format;
 the checkpoint directory holds the JAX package's files and npz keys (the
 random state apart: the port stores its own); the per-draw writer's files
 equal the JAX writer's; each package's trainer reuses the other's
@@ -26,7 +27,6 @@ from mile_tpu.train import checkpoint as jax_ckpt
 from mile_tpu_torch.bayes.posterior import value_and_grad
 from mile_tpu_torch.config import SamplerConfig
 from mile_tpu_torch.config.training import Sampler
-from mile_tpu_torch.exceptions import NotYetPortedError
 from mile_tpu_torch.train import checkpoint as ckpt
 from mile_tpu_torch.train import sampling, sampling_hmc
 from mile_tpu_torch.train.resume import SamplerCheckpoint
@@ -275,12 +275,51 @@ def test_checkpoint_files_match_jax(tmp_path, sampler):
     assert set(metas['port']['fingerprint']) == set(metas['jax']['fingerprint'])
 
 
-def test_orbax_checkpoints_raise(tmp_path):
-    with pytest.raises(NotYetPortedError, match='orbax checkpoints'):
-        SamplerCheckpoint(tmp_path, {}, fmt='orbax')
-    with pytest.raises(NotYetPortedError, match='orbax checkpoints'):
-        run('mclmc', 1, checkpoint_dir=tmp_path / 'o',
-            checkpoint_format='orbax')
+@pytest.mark.parametrize('sampler', SAMPLERS)
+def test_orbax_format_resume_is_bitwise(tmp_path, sampler):
+    """``checkpoint_format='orbax'`` routes the snapshot through
+    ``torch.distributed.checkpoint`` (``sampler_state_orbax/step_0/``, no
+    ``sampler_state.npz``; the chunks stay npz, as in the JAX package): a
+    stopped run resumes bit for bit and the directory is cleared."""
+    full = run(sampler, 7)
+    ckpt_dir = tmp_path / 'stopped'
+    with pytest.raises(Stop):
+        run(sampler, 7, checkpoint_dir=ckpt_dir, checkpoint_format='orbax',
+            sample_sink=StopAfter(2))
+    assert (ckpt_dir / 'sampler_state_orbax' / 'step_0' / '.metadata').exists()
+    assert not (ckpt_dir / 'sampler_state.npz').exists()
+    assert sorted(p.name for p in ckpt_dir.glob('chunk_*')) == [
+        'chunk_000000.npz', 'chunk_000001.npz']
+    resumed = run(sampler, 7, checkpoint_dir=ckpt_dir,
+                  checkpoint_format='orbax')
+    assert_same_run(resumed, full)
+    assert not ckpt_dir.exists()
+
+
+def test_orbax_snapshot_round_trip(tmp_path):
+    """The orbax-format snapshot gives back what the npz one does, and a
+    writer that is not rank 0 writes nothing."""
+    parts = ({'position': np.arange(6, dtype=np.float32).reshape(2, 3)},
+             {'seed': np.int64(5), 'step': np.int64(9)},
+             {'L': np.ones(2, np.float32)})
+    loaded = {}
+    for fmt in ('npz', 'orbax'):
+        checkpoint = SamplerCheckpoint(tmp_path / fmt, {'a': 1}, fmt=fmt)
+        checkpoint.save(*parts, kept_done=4)
+        loaded[fmt] = checkpoint.load()
+    for want, got in zip(loaded['npz'], loaded['orbax']):
+        if isinstance(want, dict):
+            assert set(want) == set(got)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
+                assert got[k].dtype == want[k].dtype
+        else:
+            assert got == want == 4
+    silent = SamplerCheckpoint(tmp_path / 'rank1', {'a': 1}, fmt='orbax',
+                               writer=False)
+    silent.save(*parts, kept_done=4)
+    silent.save_chunk(0, parts[0]['position'], {})
+    assert not (tmp_path / 'rank1').exists() and silent.load() is None
 
 
 # ------------------------------------------------------------ streaming
