@@ -76,6 +76,24 @@ draws equal one process's, with the in-step check and a checkpoint both
 ranks write; LeNet's full-batch gradient over two entries against the
 unsharded one, with both times.
 
+The experiment harness: ten jobs of the study catalogue (``experiments/
+torch_run_catalog.py``, ``CATALOG_JOBS``) run by ``run_queue`` on the card
+at their configs' full widths with the step counts cut (``CATALOG_CUT``),
+each job's K1/K3 launches, K1 and K3 against their plain versions at
+each job's shape (also timed there), the warm starts its consumers reuse,
+the skip
+of done jobs and the STOP file, then ``pool_results.pool`` and
+``summarize_study.summarize`` over the results; the runner's fault
+contract with a real device-side assert and a hang, in worker processes
+(this script run again with ``--catalog-fault-worker MODE ROOT``); the
+wide-FCN dtype A/B (``experiments/torch_dtype_ab_widefcn.py``) at width
+512, dim 592,386, its four arms in subprocesses, K1 and K3 on the
+streaming-cluster route, and one step there through the kernels against
+the plain versions; the NUTS timing scripts. The mesh phase also warm
+starts 13 members over two entries against one device, and the
+multi-process phase warm starts the main path's members through
+``BDETrainer`` over both ranks against the main path's.
+
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
 JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
@@ -86,9 +104,12 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import textwrap
 import time
 import traceback
 from pathlib import Path
@@ -113,8 +134,11 @@ K3_OPS_PER_ELEM = 25 + 7 + 1 + 2 + 2 + 1
 # an MCLMC step of the main path: the drifts, the sum of dK and dE are
 # fused into K1 and K3, 10 launches fewer than the 224 of the unfused step
 MAX_LAUNCHES_PER_STEP = 214
+# the K1/K3 shapes of the catalogue phase's MCLMC jobs besides (12, 674)
+CATALOG_SHAPES = [(12, 1_282), (12, 786), (12, 5_426), (12, 738),
+                  (12, 2_306), (12, 426)]
 TIMED_SHAPES = [(12, 674), (1, 674), (12, 178), (10, 61_706),
-                (8, 65_248), (2, 300_000)]
+                (8, 65_248), (2, 300_000), (12, 592_386), *CATALOG_SHAPES]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
@@ -216,12 +240,12 @@ TEXT_PAD_TOL = 1e-5
 
 # The NUTS path: the config's 12 chains, FCN [16,16,16,2] and tree depth 10
 # (up to 1023 leapfrog steps a draw); only the step counts are cut, so that
-# at that worst-case depth the phase stays within about 3 minutes
+# at that worst-case depth the phase stays within about 1.5 minutes
 NUTS_CONFIG = ROOT / 'configs' / 'illustrative_airfoil_nuts.yaml'
 NUTS_RESULTS = ROOT / 'results' / 'chip_smoke_nuts'
 NUTS_CUT = {'training.warmstart.max_epochs': 20,
-            'training.sampler.warmup_steps': 20,
-            'training.sampler.n_samples': 8}
+            'training.sampler.warmup_steps': 10,
+            'training.sampler.n_samples': 4}
 # One NUTS step on the card against the same step on the CPU, from the
 # card's state with the same draws, at tree depth 5 (31 leapfrog steps),
 # the tuned step sizes, and two chains' step sizes raised 30 and 1000
@@ -309,16 +333,87 @@ MESH_X_ATOL, MESH_DE_UNITS = 1e-4, 64.0
 # members (MESH_RUN_CUT) gives rank 0 the draws of one process's mesh of 4
 # entries, bit for bit; the in-step check raises on ranks that differ; the
 # ensemble goes through torch.distributed.checkpoint written by both
-# ranks and comes back equal.
+# ranks and comes back equal; BDETrainer.train_warmstart over both ranks
+# (the main path's config with the warm start cut to MP_WS_EPOCHS epochs,
+# 128 AdamW steps, 12 members in rows of 3 over the 4 entries, every rank
+# running the loop on the gathered gradients) gives one process's members
+# of the same config within MESH_WS_RTOL.
 MP_RESULTS = ROOT / 'results' / 'chip_smoke_multiprocess'
 MP_SEED = 31
 MP_TIMEOUT_S = 300
+MP_WS_EPOCHS = 4
 # checkpoint_format: orbax: the MCLMC resume runs stopped after chunk 2
 # and inside chunk 0 with the snapshot as a torch.distributed.checkpoint,
 # each resumed bit for bit; a trainer (CUT, STREAM_EPOCHS warm-start
 # epochs) writing warmstart/orbax/ and a second one reusing it with its
 # npz members gone
 ORBAX_RESULTS = ROOT / 'results' / 'chip_smoke_orbax'
+# The warm start over a chain mesh: train_ensemble on the padded mesh
+# trainer's model and data (13 members, CUT's 20 epochs) over cuda:0 twice
+# (rows of 7 and 6 members) against one device. The members agree within
+# MESH_WS_RTOL of their largest entry: cuBLAS may pick other kernels for
+# 7 rows of members than for 13, and AdamW's normalised step turns the
+# float32 rounding of a gradient entry near 0 into a step of up to the
+# learning rate
+MESH_WS_RTOL = 1e-3
+
+# The study catalogue (experiments/torch_run_catalog.py): ten jobs of
+# build_jobs() run by run_queue on the card into CATALOG_RESULTS, each at
+# its config's full width (sonar FCN [16, 16, 2], bikesharing FCN
+# [16, 16, 16, 2] and [48, 48, 48, 2], protein at 40,000 rows, airfoil with
+# a bf16 forward, the 10-layer feasibility FCN with and without diagonal
+# preconditioning, the deep-8 diagnostics FCN; 12 chains each), the step
+# counts cut in memory as CUT cuts the main path: the warm start to 2
+# epochs, the tuner to 100 steps, sampling to 100 steps at the config's
+# thinning; the NUTS job (depth capped at 8 by the catalogue) to 10
+# adaptation steps and 4 draws. Three jobs reuse a provider's warm start.
+CATALOG_RESULTS = RESULTS / 'catalog'
+CATALOG_JOBS = ('tabular_classif/sonar_mclmc_r1',
+                'hyper_params/bike_mclmc_ev0.5_0.1_r1',
+                'hyper_params/bike_mclmc_trust2.0_r1',
+                'complexity/bike_mclmc_48x48x48_r1',
+                'complexity/bike_nuts_48x48x48_r1',
+                'datasize/protein_mclmc_n40000_r1',
+                'dtype_ab/airfoil_mclmc_bf16fwd_r1',
+                'feasibility/feas_mclmc_airfoil',
+                'feasibility/feas_tuned_airfoil',
+                'diagnostics/diag_mclmc_airfoil_r1')
+CATALOG_CUT = {'training.warmstart.max_epochs': 2,
+               'training.sampler.warmup_steps': 100,
+               'training.sampler.n_samples': 100}
+CATALOG_NUTS_CUT = {'training.warmstart.max_epochs': 2,
+                    'training.sampler.warmup_steps': 10,
+                    'training.sampler.n_samples': 4}
+# The runner's fault contract with real CUDA errors: this script run again
+# with --catalog-fault-worker MODE ROOT, its trainer replaced by one that
+# indexes out of range on the card (a device-side assert), three times
+# over one root; then one whose job sleeps past --job-timeout
+FAULT_RESULTS = ROOT / 'results' / 'chip_smoke_catalog_fault'
+FAULT_JOB = ['--only', 'datasize', '--name-filter',
+             '^protein_mclmc_n40000_r1$']
+FAULT_HANG_TIMEOUT_S = 5
+FAULT_WORKER_TIMEOUT_S = 300
+# The wide-FCN dtype A/B (experiments/torch_dtype_ab_widefcn.py) at the
+# JAX script's width: FCN [512, 512, 512, 2] over 65,536 x 128 rows, 12
+# chains, dim 592,386 (K1 and K3 on the streaming-cluster route), its four
+# arms each in a subprocess, the tuner cut to 30 steps (of 500) and the
+# timed block to 5 (of 10)
+AB_SCRIPT = ROOT / 'experiments' / 'torch_dtype_ab_widefcn.py'
+AB_RESULTS = ROOT / 'results' / 'chip_smoke_dtype_ab.jsonl'
+AB_WIDTH, AB_SHAPE = 512, (12, 592_386)
+# (at 20 tuner steps phase 3 traces 2 steps, and a coordinate that does
+# not move in them gives its chain L = NaN, as in the JAX tuner)
+AB_WARMUP, AB_TIMED = 30, 5
+AB_TIMEOUT_S = 900
+# The NUTS timing scripts (no hand-written kernel) at tree depth 10, the
+# step counts cut: a depth-10 step is up to 1023 batched leaves of about 5
+# ms of host time each on the card (the NUTS path's), so 3 adaptation
+# steps (of 500) run twice, and 3 adaptation steps (of 100) and 2 draws
+# (of 200)
+NUTS_SCRIPTS = {'torch_time_warmup.py': ['3', '8'],
+                'torch_profile_nuts.py': ['--warmup-steps', '3',
+                                          '--draws', '2']}
+NUTS_SCRIPT_TIMEOUT_S = 600
 
 
 class SimulatedStop(Exception):
@@ -336,6 +431,36 @@ class StopAfter:
         self.seen += 1
         if self.seen >= self.n:
             raise SimulatedStop(f'after chunk {self.seen}')
+
+
+def kernel_bytes(n_chains: int, dim: int,
+                 preconditioned: bool = False) -> tuple[int, int]:
+    """Bytes that K1 and K3 must move in an MCLMC step's fused calls:
+    K1 reads u, g, x (and the preconditioner) and eps and writes u' and
+    x', the dK sum read and written; K3 reads u, eps, L, dK, logp' and
+    logp and writes u' and dE, both sums and the counter read and
+    written."""
+    elems = n_chains * dim
+    k1 = 4 * ((6 if preconditioned else 5) * elems + 3 * n_chains)
+    k3 = 4 * (2 * elems + 10 * n_chains) + 16
+    return k1, k3
+
+
+def tuner_steps(warmup_steps: int, diagonal_preconditioning: bool) -> int:
+    """MCLMC steps of the tuner: its three phases and, with diagonal
+    preconditioning, the re-adjustment after phase 2 (as
+    ``mclmc_tuning.mclmc_tune`` counts them)."""
+    from mile_tpu_torch.mcmc.adaptation.mclmc_tuning import TuningConfig
+
+    t1, t2, t3 = (int(warmup_steps * r) for r in TuningConfig().phase_ratio)
+    return t1 + t2 + t3 + (t2 // 3 if diagonal_preconditioning else 0)
+
+
+def mclmc_steps(scfg) -> int:
+    """MCLMC steps of a run of sampler config ``scfg``: the tuner's, then
+    the sampling steps up to the last kept draw."""
+    return (tuner_steps(scfg.warmup_steps, scfg.diagonal_preconditioning)
+            + math.ceil(scfg.n_samples / scfg.n_thinning) * scfg.n_thinning)
 
 
 def fail(msg: str) -> None:
@@ -400,11 +525,8 @@ class Smoke:
 
     # ----------------------------------------------------------- K1
     def k1(self):
-        import numpy as np
-
         from mile_tpu_torch.ops import isokinetic as ops
 
-        coef = 0.1931833275037836
         # the main path's shapes (12 and 1 chains of 674), a multiple of 4
         # (float4 loads), and the two cluster routes: resident in registers
         # (40,000) and streaming (300,000)
@@ -415,55 +537,7 @@ class Smoke:
             if dim == 300_000:
                 self.check(route.cluster > 1 and not route.resident,
                            f'dim {dim} takes the streaming cluster route')
-            rng = np.random.default_rng(dim + n_chains)
-            g = rng.normal(size=(n_chains, dim)).astype(np.float32)
-            # u partly aligned with g, and delta = eps|g|/(d-1) of order 1,
-            # keep dK = (d-1)(delta - log 2 + log1p(...)) away from the
-            # cancellation where float32 rounding alone exceeds rtol 2e-4
-            u = g + rng.normal(size=g.shape).astype(np.float32)
-            u /= np.linalg.norm(u, axis=1, keepdims=True)
-            sdc = rng.uniform(0.5, 1.5, size=g.shape).astype(np.float32)
-            eps = (rng.uniform(0.5, 2.0, n_chains)
-                   * dim ** 0.5 / coef).astype(np.float32)
-            # the fused call: a sampler-sized step for the drift (so that
-            # x' = x + 0.5 eps u' s stays near x, away from zero, and is held
-            # to rtol 1e-6) and a large stage fraction for the rotation (the
-            # same rotation as above)
-            step = (eps * coef / dim ** 0.5 * 0.02).astype(np.float32)
-            big_coef = dim ** 0.5 / 0.02
-            x = (rng.choice([-1.0, 1.0], size=g.shape)
-                 * rng.uniform(0.5, 1.5, size=g.shape)).astype(np.float32)
-            kinetic = rng.normal(size=n_chains).astype(np.float32) * 100.0
-            u_t, g_t, eps_t, sdc_t, step_t, x_t, kin_t = map(
-                self.cuda_tensor, (u, g, eps, sdc, step, x, kinetic))
-            for label, sd in (('per-chain', sdc_t), ('shared', sdc_t[0]),
-                              ('none', None)):
-                ku, kdk = ops.isokinetic_momentum(u_t, g_t, eps_t, sd, coef)
-                pu, pdk = ops.isokinetic_momentum_plain(u_t, g_t, eps_t, sd,
-                                                        coef)
-                kk, pk = kin_t.clone(), kin_t.clone()
-                fu, fk, fx = ops.isokinetic_momentum(
-                    u_t, g_t, step_t, sd, big_coef, x=x_t, x_frac=0.5,
-                    kinetic=kk)
-                qu, _, qx = ops.isokinetic_momentum_plain(
-                    u_t, g_t, step_t, sd, big_coef, x=x_t, x_frac=0.5,
-                    kinetic=pk)
-                self.torch.cuda.synchronize()
-                err = float(max((ku - pu).abs().max(), (fu - qu).abs().max()))
-                rel = float(max(((kdk - pdk).abs()
-                                 / (1e-5 + 2e-4 * pdk.abs())).max(),
-                                ((kk - pk).abs()
-                                 / (1e-5 + 2e-4 * pk.abs())).max()))
-                x_rel = float(((fx - qx).abs() / qx.abs()).max())
-                self.k1_err = max(self.k1_err, err)
-                self.check(err <= 2e-5 and rel <= 1.0 and x_rel <= 1e-6
-                           and fk is kk
-                           and bool(self.torch.isfinite(kdk).all()),
-                           f'K1 ({n_chains}, {dim}) sqrt_diag_cov {label}, '
-                           f'plain and with drift + dK sum: max|du| '
-                           f'{err:.2e} (atol 2e-5), dK within {rel:.2f} of '
-                           f'rtol 2e-4 + atol 1e-5, x\' rel {x_rel:.1e} '
-                           f'(rtol 1e-6), dK summed in place')
+            self._k1_check(n_chains, dim)
         for n_chains, dim in [(3, 128), (1, 674)]:
             u = self.torch.randn(n_chains, dim, device=self.dev)
             u = u / u.norm(dim=1, keepdim=True)
@@ -491,6 +565,65 @@ class Smoke:
                 refused = True
             self.check(refused, f'K1 refuses {what} before launching')
 
+    def _k1_check(self, n_chains: int, dim: int) -> None:
+        """K1 against its plain version at (n_chains, dim) on the card, with
+        a per-chain, a shared and no sqrt_diag_cov, plain and with the
+        drift and the dK sum fused in."""
+        import numpy as np
+
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        coef = 0.1931833275037836
+        rng = np.random.default_rng(dim + n_chains)
+        g = rng.normal(size=(n_chains, dim)).astype(np.float32)
+        # u partly aligned with g, and delta = eps|g|/(d-1) of order 1,
+        # keep dK = (d-1)(delta - log 2 + log1p(...)) away from the
+        # cancellation where float32 rounding alone exceeds rtol 2e-4
+        u = g + rng.normal(size=g.shape).astype(np.float32)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        sdc = rng.uniform(0.5, 1.5, size=g.shape).astype(np.float32)
+        eps = (rng.uniform(0.5, 2.0, n_chains)
+               * dim ** 0.5 / coef).astype(np.float32)
+        # the fused call: a sampler-sized step for the drift (so that
+        # x' = x + 0.5 eps u' s stays near x, away from zero, and is held
+        # to rtol 1e-6) and a large stage fraction for the rotation (the
+        # same rotation as above)
+        step = (eps * coef / dim ** 0.5 * 0.02).astype(np.float32)
+        big_coef = dim ** 0.5 / 0.02
+        x = (rng.choice([-1.0, 1.0], size=g.shape)
+             * rng.uniform(0.5, 1.5, size=g.shape)).astype(np.float32)
+        kinetic = rng.normal(size=n_chains).astype(np.float32) * 100.0
+        u_t, g_t, eps_t, sdc_t, step_t, x_t, kin_t = map(
+            self.cuda_tensor, (u, g, eps, sdc, step, x, kinetic))
+        for label, sd in (('per-chain', sdc_t), ('shared', sdc_t[0]),
+                          ('none', None)):
+            ku, kdk = ops.isokinetic_momentum(u_t, g_t, eps_t, sd, coef)
+            pu, pdk = ops.isokinetic_momentum_plain(u_t, g_t, eps_t, sd,
+                                                    coef)
+            kk, pk = kin_t.clone(), kin_t.clone()
+            fu, fk, fx = ops.isokinetic_momentum(
+                u_t, g_t, step_t, sd, big_coef, x=x_t, x_frac=0.5,
+                kinetic=kk)
+            qu, _, qx = ops.isokinetic_momentum_plain(
+                u_t, g_t, step_t, sd, big_coef, x=x_t, x_frac=0.5,
+                kinetic=pk)
+            self.torch.cuda.synchronize()
+            err = float(max((ku - pu).abs().max(), (fu - qu).abs().max()))
+            rel = float(max(((kdk - pdk).abs()
+                             / (1e-5 + 2e-4 * pdk.abs())).max(),
+                            ((kk - pk).abs()
+                             / (1e-5 + 2e-4 * pk.abs())).max()))
+            x_rel = float(((fx - qx).abs() / qx.abs()).max())
+            self.k1_err = max(self.k1_err, err)
+            self.check(err <= 2e-5 and rel <= 1.0 and x_rel <= 1e-6
+                       and fk is kk
+                       and bool(self.torch.isfinite(kdk).all()),
+                       f'K1 ({n_chains}, {dim}) sqrt_diag_cov {label}, '
+                       f'plain and with drift + dK sum: max|du| '
+                       f'{err:.2e} (atol 2e-5), dK within {rel:.2f} of '
+                       f'rtol 2e-4 + atol 1e-5, x\' rel {x_rel:.1e} '
+                       f'(rtol 1e-6), dK summed in place')
+
     # ----------------------------------------------------------- K3
     def k3(self):
         torch = self.torch
@@ -504,32 +637,7 @@ class Smoke:
 
         for n_chains, dim in [MAIN_SHAPE, (6, 674), (1, 674), (2, 40_000),
                               IMAGE_SHAPE, TEXT_SHAPE, (2, 300_000)]:
-            u = unit(n_chains, dim)
-            z = torch.randn(n_chains, dim, generator=gen).to(self.dev)
-            eps = torch.rand(n_chains, generator=gen).to(self.dev) * 0.2 + 0.05
-            L = torch.rand(n_chains, generator=gen).to(self.dev) * 2.0 + 0.5
-            out = ops.partial_refresh(u, eps, L, z=z)
-            err = float((out - ops.partial_refresh_plain(u, eps, L, z))
-                        .abs().max())
-            # with dE fused in, and its running sums
-            energy = [(torch.randn(n_chains, generator=gen) * 100.0)
-                      .to(self.dev) for _ in range(5)]
-            k_sums = (energy[3].clone(), energy[4].clone())
-            p_sums = (energy[3].clone(), energy[4].clone())
-            k_out, k_de = ops.partial_refresh(u, eps, L, z=z,
-                                              energy=energy[:3],
-                                              energy_sums=k_sums)
-            p_out, p_de = ops.partial_refresh_plain(u, eps, L, z,
-                                                    energy=energy[:3],
-                                                    energy_sums=p_sums)
-            err = max(err, float((k_out - p_out).abs().max()))
-            same = (torch.equal(k_de, p_de) and torch.equal(k_sums[0], p_sums[0])
-                    and torch.equal(k_sums[1], p_sums[1]))
-            self.k3_err = max(self.k3_err, err)
-            self.check(err <= 1e-6 and same,
-                       f'K3 injected noise ({n_chains}, {dim}), plain and '
-                       f'with dE + its sums: max|du| {err:.2e} (atol 1e-6), '
-                       f'dE and sums equal the plain version\'s: {same}')
+            self._k3_check(n_chains, dim, gen)
 
         # Philox mode: the statistics of tests/test_pallas_ops.py
         for n_chains, dim in [(6, 674), (1, 674)]:
@@ -600,6 +708,40 @@ class Smoke:
                    + ', '.join(f'{k} {v:+.4f}' for k, v in pairs.items())
                    + ' (each |corr| < 0.01)')
         self._k3_graph()
+
+    def _k3_check(self, n_chains: int, dim: int, gen) -> None:
+        """K3 with injected noise against its plain version at (n_chains,
+        dim) on the card, plain and with dE and its sums fused in."""
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        u = torch.randn(n_chains, dim, generator=gen)
+        u = (u / u.norm(dim=1, keepdim=True)).to(self.dev)
+        z = torch.randn(n_chains, dim, generator=gen).to(self.dev)
+        eps = torch.rand(n_chains, generator=gen).to(self.dev) * 0.2 + 0.05
+        L = torch.rand(n_chains, generator=gen).to(self.dev) * 2.0 + 0.5
+        out = ops.partial_refresh(u, eps, L, z=z)
+        err = float((out - ops.partial_refresh_plain(u, eps, L, z))
+                    .abs().max())
+        # with dE fused in, and its running sums
+        energy = [(torch.randn(n_chains, generator=gen) * 100.0)
+                  .to(self.dev) for _ in range(5)]
+        k_sums = (energy[3].clone(), energy[4].clone())
+        p_sums = (energy[3].clone(), energy[4].clone())
+        k_out, k_de = ops.partial_refresh(u, eps, L, z=z,
+                                          energy=energy[:3],
+                                          energy_sums=k_sums)
+        p_out, p_de = ops.partial_refresh_plain(u, eps, L, z,
+                                                energy=energy[:3],
+                                                energy_sums=p_sums)
+        err = max(err, float((k_out - p_out).abs().max()))
+        same = (torch.equal(k_de, p_de) and torch.equal(k_sums[0], p_sums[0])
+                and torch.equal(k_sums[1], p_sums[1]))
+        self.k3_err = max(self.k3_err, err)
+        self.check(err <= 1e-6 and same,
+                   f'K3 injected noise ({n_chains}, {dim}), plain and '
+                   f'with dE + its sums: max|du| {err:.2e} (atol 1e-6), '
+                   f'dE and sums equal the plain version\'s: {same}')
 
     def _k3_graph(self):
         """K3 with a device step counter, captured in a CUDA graph and
@@ -2222,6 +2364,7 @@ Step by step: each card step is held against the same step taken on
                    f'(1 x {n_steps}) on the first device for the ({n_run}, '
                    f'{MAIN_SHAPE[1]}) batch; finite draws; lppd '
                    f'{float(metrics["lppd"]):.4f}')
+        self._mesh_warm_start(trainer, config, card, seconds)
 
         main_trainer, main_members = self.main_run
         rcfg = main_trainer.config.replace(**MESH_RUN_CUT).training.sampler
@@ -2265,6 +2408,45 @@ Step by step: each card step is held against the same step taken on
         self.timings['mesh_s'] = seconds
         self._mesh_steps(main_trainer, self.main_result,
                          {k: v for k, v in meshes.items() if v is not None})
+
+    def _mesh_warm_start(self, trainer, config, card, seconds):
+        """The warm start over a chain mesh of cuda:0 twice: train_ensemble
+        on the padded trainer's model and data (the trainer itself warm
+        starts on its divisor mesh of one entry, as the JAX trainer does)
+        against one device, within MESH_WS_RTOL, with both times."""
+        torch = self.torch
+        from mile_tpu_torch.parallel.mesh import chain_mesh
+        from mile_tpu_torch.train.warmstart import train_ensemble
+
+        members = {}
+        for label, mesh in (('one device', None),
+                            (f'{MESH_ENTRIES} entries',
+                             chain_mesh(MESH_ENTRIES,
+                                        [card] * MESH_ENTRIES))):
+            t0 = time.perf_counter()
+            members[label], _ = train_ensemble(
+                trainer.model, trainer.loader, config.training.warmstart,
+                config.data.task, MESH_CHAINS,
+                torch.Generator().manual_seed(MP_SEED), mesh=mesh)
+            torch.cuda.synchronize()
+            seconds[f'warm start, {label}'] = time.perf_counter() - t0
+        alone, sharded = members.values()
+        scale = float(alone.abs().max())
+        apart = float((sharded - alone).abs().max())
+        n_steps = config.training.warmstart.max_epochs * (
+            trainer.loader.arrays('train')[0].shape[0]
+            // config.training.warmstart.batch_size)
+        self.timings['mesh_warm_start'] = {
+            'max_abs_diff': apart, 'max_abs': scale,
+            'bitwise': bool(torch.equal(sharded, alone))}
+        self.check(apart <= MESH_WS_RTOL * scale,
+                   f'warm start of {MESH_CHAINS} members ({n_steps} AdamW '
+                   f'steps) over {MESH_ENTRIES} entries of {card} against '
+                   f'one device: max|d theta| {apart:.2e} (<= '
+                   f'{MESH_WS_RTOL:g} x max|theta| {scale:.3g}); '
+                   + ('bit for bit; ' if torch.equal(sharded, alone) else '')
+                   + f'{seconds["warm start, one device"]:.2f} s against '
+                   f'{seconds[f"warm start, {MESH_ENTRIES} entries"]:.2f} s')
 
     def _mesh_steps(self, trainer, result, meshes):
         """MESH_STEPS steps on each mesh, each from the one-device run's
@@ -2370,14 +2552,17 @@ Step by step: each card step is held against the same step taken on
         """Two processes (this script with --multiprocess-worker) joined
         over gloo, each with a chain mesh of cuda:0 twice: rank 0's draws
         equal one process's over 4 entries bit for bit, the in-step check
-        raised on differing arrays, and the members came back from the
-        checkpoint both ranks wrote."""
+        raised on differing arrays, the members came back from the
+        checkpoint both ranks wrote, and the trainer's warm start over both
+        ranks gave one process's members within MESH_WS_RTOL, with both
+        times."""
         import numpy as np
         import shutil
         import socket
 
         torch = self.torch
         from mile_tpu_torch.parallel.mesh import chain_mesh
+        from mile_tpu_torch.train.trainer import BDETrainer
 
         card = self._card()
         shutil.rmtree(MP_RESULTS, ignore_errors=True)
@@ -2443,8 +2628,32 @@ Step by step: each card step is held against the same step taken on
         self.check(np.array_equal(got['restored'], members.cpu().numpy()),
                    'the members written by both ranks through '
                    'torch.distributed.checkpoint came back equal')
+        one = BDETrainer(multiprocess_warmstart_config('warmstart_one'),
+                         device=card)
+        t0 = time.perf_counter()
+        alone = one.train_warmstart().cpu().numpy()
+        alone_s = time.perf_counter() - t0
+        scale = float(np.abs(alone).max())
+        apart = float(np.abs(got['warm'] - alone).max())
+        warm_s = float(got['warm_s'])
+        self.check(int(got['warm_mesh_size']) == 4
+                   and apart <= MESH_WS_RTOL * scale,
+                   f'BDETrainer.train_warmstart over 2 ranks (mesh of '
+                   f'{int(got["warm_mesh_size"])} entries, {MP_WS_EPOCHS} '
+                   f'epochs) against one process: max|d theta| '
+                   f'{apart:.2e} (<= {MESH_WS_RTOL:g} x max|theta| '
+                   f'{scale:.3g}); '
+                   + ('bit for bit; ' if np.array_equal(got['warm'], alone)
+                      else '')
+                   + f'{warm_s:.2f} s on rank 0 against {alone_s:.2f} s in '
+                   f'one process')
         self.timings['multiprocess_s'] = {'workers': workers_s,
-                                          'one_process': one_s}
+                                          'one_process': one_s,
+                                          'warm_start_2_ranks': warm_s,
+                                          'warm_start_one_process': alone_s}
+        self.timings['multiprocess_warm_start'] = {
+            'max_abs_diff': apart, 'max_abs': scale,
+            'bitwise': bool(np.array_equal(got['warm'], alone))}
 
     def orbax_format(self):
         """``checkpoint_format='orbax'``: the MCLMC resume runs again, stopped
@@ -2669,6 +2878,391 @@ Step by step: each card step is held against the same step taken on
               f'{wall:.1f} s')
         print(f'  split HMC profile {json.dumps(profile)}')
 
+    # -------------------------------------------------- experiment harness
+    def _experiments(self, name: str):
+        """A module of the checkout's ``experiments/``."""
+        import importlib
+
+        if str(ROOT / 'experiments') not in sys.path:
+            sys.path.insert(0, str(ROOT / 'experiments'))
+        return importlib.import_module(name)
+
+    def catalog(self):
+        """CATALOG_JOBS through ``run_queue`` on the card: every job ok with
+        a finite LPPD (sonar's accuracy above chance), K1 and K3 launched 3
+        and 1 times per MCLMC step of each MCLMC job and never in the NUTS
+        job, K1 and K3 against their plain versions at each MCLMC job's
+        shape, each consumer's warm start its provider's bit for bit; a
+        second ``run_queue`` skips all without a trainer, a STOP file gives
+        75 and is consumed; ``pool_results.pool`` gives one row per job and
+        ``summarize_study.summarize`` a table of it."""
+        import dataclasses
+        import pickle
+        import shutil
+
+        import numpy as np
+
+        torch = self.torch
+        cat = self._experiments('torch_run_catalog')
+        pool_results = self._experiments('pool_results')
+        summarize_study = self._experiments('summarize_study')
+        from mile_tpu_torch.config import Sampler, Task
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train import trainer as trainer_mod
+
+        by_key = {f'{j.study}/{j.name}': j for j in cat.build_jobs()}
+        jobs = [dataclasses.replace(by_key[key], overrides={
+            **by_key[key].overrides,
+            **(CATALOG_NUTS_CUT if '_nuts_' in key else CATALOG_CUT)})
+            for key in CATALOG_JOBS]
+        root = CATALOG_RESULTS
+        shutil.rmtree(root, ignore_errors=True)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cat.run_queue(jobs, root, device=self.dev.type)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = self._launches()
+        self.path_launches['catalog'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), launches))
+        records = {r['job']: r for r in map(json.loads, (
+            root / 'queue.jsonl').read_text().splitlines())}
+        self.check(rc == 0 and len(records) == len(jobs)
+                   and all(r['ok'] for r in records.values()),
+                   f'run_queue over {len(jobs)} jobs on the card: exit {rc},'
+                   f' {sum(r["ok"] for r in records.values())} ok in '
+                   f'{wall:.1f} s')
+        summed = tuple(sum(r['launches'][k] for r in records.values())
+                       for k in ('isokinetic_momentum', 'partial_refresh'))
+        self.check(summed == launches,
+                   f'the jobs\' launches {summed} are the run\'s {launches}')
+        per_job = {}
+        for job in jobs:
+            exp = job.exp_dir(root)
+            rec = records[job.name]
+            config = job.config(root)
+            scfg = config.training.sampler
+            with open(exp / 'metrics.pkl', 'rb') as f:
+                metrics = pickle.load(f)
+            dim = sum(a.size for a in np.load(
+                exp / 'warmstart' / 'params_0.npz').values())
+            if scfg.name == Sampler.MCLMC:
+                steps = mclmc_steps(scfg)
+                want = {'isokinetic_momentum': 3 * steps,
+                        'partial_refresh': steps}
+            else:
+                steps = scfg.warmup_steps + scfg.n_samples
+                want = {'isokinetic_momentum': 0, 'partial_refresh': 0}
+            ok = (rec['launches'] == want
+                  and math.isfinite(float(metrics['lppd'])))
+            what = (f'{job.study}/{job.name}: ({scfg.n_chains}, {dim}), '
+                    f'{scfg.name.value} {steps} steps, K1/K3 '
+                    f'{rec["launches"]["isokinetic_momentum"]}/'
+                    f'{rec["launches"]["partial_refresh"]} (want '
+                    f'{want["isokinetic_momentum"]}/'
+                    f'{want["partial_refresh"]}), lppd '
+                    f'{float(metrics["lppd"]):.4f}')
+            if config.data.task == Task.CLASSIFICATION:
+                ok = ok and float(metrics['acc']) > 0.5
+                what += f', accuracy {float(metrics["acc"]):.3f} (> 0.5)'
+            k1_bytes, k3_bytes = kernel_bytes(
+                scfg.n_chains, dim, scfg.diagonal_preconditioning)
+            per_job[job.name] = {
+                'shape': [scfg.n_chains, dim], 'steps': steps,
+                'wall_s': rec['wall_s'], 'launches': rec['launches'],
+                'lppd': float(metrics['lppd']),
+                'bound_us': {'isokinetic_momentum':
+                             1e6 * k1_bytes / HBM_BYTES_PER_S,
+                             'partial_refresh':
+                             1e6 * k3_bytes / HBM_BYTES_PER_S}}
+            self.check(ok, what + f'; {rec["wall_s"]} s')
+            if job.warmstart_from is not None:
+                provider = job.warmstart_dir(root) / 'warmstart'
+                same = all(
+                    all(np.array_equal(a[k], b[k]) for k in a.files)
+                    for a, b in ((np.load(provider / f'params_{i}.npz'),
+                                  np.load(exp / 'warmstart' /
+                                          f'params_{i}.npz'))
+                                 for i in range(scfg.n_chains)))
+                self.check(same, f'{job.name} reuses '
+                                 f'{job.warmstart_from}\'s members bit for '
+                                 f'bit')
+
+        # K1 and K3 against their plain versions at each MCLMC job's shape
+        # (K1 with a per-chain sqrt_diag_cov too: feas_tuned_airfoil's)
+        shapes = {tuple(row['shape']) for row in per_job.values()
+                  if row['launches']['partial_refresh']}
+        self.check(shapes == {MAIN_SHAPE, *CATALOG_SHAPES},
+                   f'the MCLMC jobs\' shapes {sorted(shapes)} are '
+                   f'CATALOG_SHAPES and {MAIN_SHAPE}')
+        gen = torch.Generator().manual_seed(5)
+        for n_chains, dim in sorted(shapes):
+            self._k1_check(n_chains, dim)
+            self._k3_check(n_chains, dim, gen)
+
+        class Boom:
+            def __init__(self, *args, **kwargs):
+                raise AssertionError('a skipped job built a trainer')
+
+        saved = trainer_mod.BDETrainer
+        trainer_mod.BDETrainer = Boom
+        try:
+            again = cat.run_queue(jobs, root, device=self.dev.type)
+            n_records = len((root / 'queue.jsonl').read_text().splitlines())
+            (root / 'STOP').touch()
+            stop = cat.run_queue(jobs, root, device=self.dev.type)
+        finally:
+            trainer_mod.BDETrainer = saved
+        self.check(again == 0 and n_records == len(jobs),
+                   f'a second run_queue over the same root: exit {again}, '
+                   f'every job skipped without a trainer')
+        self.check(stop == 75 and not (root / 'STOP').exists(),
+                   f'a STOP file: exit {stop}, consumed')
+
+        df = pool_results.pool(root)
+        mclmc = df['training.sampler.name'] == 'mclmc'
+        for job in jobs:
+            row = df[df['experiment_name'] == job.name]
+            sampling = float(row['time.sampling'].iloc[0])
+            per_job[job.name]['time_sampling_s'] = sampling
+            per_job[job.name]['chain_steps_per_s'] = (
+                per_job[job.name]['shape'][0] * per_job[job.name]['steps']
+                / sampling)
+        self.check(len(df) == len(jobs)
+                   and set(df['experiment_name']) == {j.name for j in jobs}
+                   and bool(np.isfinite(df['lppd']).all())
+                   and bool((df['time.sampling'] > 0).all())
+                   and {'step_size_mean', 'L_mean'} <= set(df.columns)
+                   and bool(np.isfinite(df.loc[mclmc, 'step_size_mean'])
+                            .all())
+                   and bool(df.loc[mclmc, 'L_mean'].notna().all()),
+                   f'pool_results.pool: {len(df)} rows of {len(df.columns)}'
+                   f' columns, lppd and time.sampling in every row, '
+                   f'step_size_mean and L_mean in the '
+                   f'{int(mclmc.sum())} MCLMC rows (L_mean finite in '
+                   f'{int(np.isfinite(df.loc[mclmc, "L_mean"]).sum())})')
+        table = summarize_study.summarize(
+            df, ['experiment_name'],
+            ['lppd', 'time.sampling', 'step_size_mean', 'L_mean'])
+        print(textwrap.indent(table, '  '))
+        self.check(len(table.splitlines()) == len(jobs) + 2,
+                   'summarize_study.summarize: a table of every job')
+        for name, row in per_job.items():
+            print(f'  {name}: {row["wall_s"]} s, sampling '
+                  f'{row["time_sampling_s"]:.2f} s, '
+                  f'{row["chain_steps_per_s"]:.0f} chain-steps/s')
+        self.timings['catalog'] = {'wall_s': wall, 'jobs': per_job}
+
+    def _fault_worker(self, mode: str, root: Path) -> tuple:
+        """This script as a catalogue worker (``mode`` 'assert' or 'hang')
+        over ``root``: (exit code, strikes, queue records, output)."""
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             '--catalog-fault-worker', mode, str(root)],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=FAULT_WORKER_TIMEOUT_S)
+
+        def lines(name):
+            path = root / name
+            return ([json.loads(x) for x in path.read_text().splitlines()]
+                    if path.exists() else [])
+
+        return (proc.returncode, lines('FAULTS.jsonl'),
+                lines('queue.jsonl'), proc.stdout + proc.stderr)
+
+    def catalog_fault(self):
+        """The runner's fault contract with a real device-side assert, in
+        worker processes: the first launch exits 70 with one strike and a
+        failed record, the second 70 with two strikes, the third skips the
+        job without a trainer and exits 0; a job that sleeps past
+        ``--job-timeout`` exits 70 with a hang strike."""
+        import shutil
+
+        for root in (FAULT_RESULTS / 'assert', FAULT_RESULTS / 'hang'):
+            shutil.rmtree(root, ignore_errors=True)
+        runs, seconds = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs.append(self._fault_worker('assert', FAULT_RESULTS / 'assert'))
+            seconds.append(time.perf_counter() - t0)
+        (rc1, s1, q1, out1), (rc2, s2, q2, out2), (rc3, s3, q3, out3) = runs
+        error = q1[0]['error'] if q1 else ''
+        self.check(rc1 == 70 and len(s1) == 1 and len(q1) == 1
+                   and q1[0]['ok'] is False and 'CUDA error' in error,
+                   f'launch 1: exit {rc1}, {len(s1)} strike, record '
+                   f'{error[:120]!r}')
+        self.check(rc2 == 70 and len(s2) == 2 and len(q2) == 2,
+                   f'launch 2: exit {rc2}, {len(s2)} strikes')
+        self.check(rc3 == 0 and len(s3) == 2 and len(q3) == 2,
+                   f'launch 3: exit {rc3}, the job skipped without a '
+                   f'trainer ({len(q3)} records)')
+        t0 = time.perf_counter()
+        rc, strikes, queue, out = self._fault_worker('hang',
+                                                     FAULT_RESULTS / 'hang')
+        seconds.append(time.perf_counter() - t0)
+        self.check(rc == 70 and len(strikes) == 1
+                   and strikes[0].get('hang') is True
+                   and queue and queue[0]['error'] == 'hang',
+                   f'a job sleeping past --job-timeout '
+                   f'{FAULT_HANG_TIMEOUT_S}: exit {rc}, strikes {strikes}')
+        for rc_, text in ((rc1, out1), (rc2, out2), (rc3, out3), (rc, out)):
+            if rc_ not in (0, 70):
+                print(textwrap.indent(text[-3000:], '    '))
+        self.timings['catalog_fault_s'] = seconds
+
+    def dtype_ab(self):
+        """The dtype A/B at W = 512 (AB_SHAPE, the streaming route), its
+        four arms in subprocesses: each ok, K1/K3 launched 3 and 1 times
+        per MCLMC step, 12 finite step sizes in the float32 arms; then one
+        MCLMC step at AB_SHAPE through the kernels against the plain
+        versions on the card."""
+        torch = self.torch
+        ab = self._experiments('torch_dtype_ab_widefcn')
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        route = ops.kernel_route(AB_SHAPE[1])
+        self.check(route.cluster > 1 and not route.resident,
+                   f'dim {AB_SHAPE[1]} takes the streaming cluster route '
+                   f'{route}')
+        AB_RESULTS.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(AB_SCRIPT), '--out', str(AB_RESULTS),
+             '--warmup-steps', str(AB_WARMUP), '--timed-steps',
+             str(AB_TIMED), '--device', self.dev.type], cwd=ROOT,
+            capture_output=True, text=True, timeout=AB_TIMEOUT_S,
+            env=dict(os.environ, MILE_AB_WIDTH=str(AB_WIDTH)))
+        wall = time.perf_counter() - t0
+        print(textwrap.indent(proc.stdout.strip(), '  '))
+        records = ([json.loads(x) for x in AB_RESULTS.read_text()
+                    .splitlines()] if AB_RESULTS.exists() else [])
+        self.check(proc.returncode == 0 and len(records) == len(ab.ARMS)
+                   and not any('verdict' in r for r in records),
+                   f'{len(records)} arms recorded, exit {proc.returncode}, '
+                   f'{wall:.1f} s')
+        if proc.returncode != 0 or any('verdict' in r for r in records):
+            print(textwrap.indent(proc.stderr[-3000:], '    '))
+            for r in records:
+                print(textwrap.indent(r.get('error', '')[-2000:], '    '))
+        # the tuner, then a warm block and the timed block
+        steps = tuner_steps(AB_WARMUP, False) + 2 * AB_TIMED
+        totals = [0, 0]
+        for rec in (r for r in records if 'verdict' not in r):
+            k1 = rec['launches']['isokinetic_momentum']
+            k3 = rec['launches']['partial_refresh']
+            totals[0] += k1
+            totals[1] += k3
+            f32 = rec['arm'].split('_')[0] != 'bf16fwd'
+            self.check(rec['dim'] == AB_SHAPE[1] and k1 == 3 * steps
+                       and k3 == steps and (not f32 or rec[
+                           'finite_eps_chains'] == AB_SHAPE[0]),
+                       f'{rec["arm"]}: K1 {k1}, K3 {k3} (3 and 1 x {steps} '
+                       f'steps) at ({rec["n_chains"]}, {rec["dim"]}); '
+                       f'finite eps in {rec["finite_eps_chains"]} chains; '
+                       f'{rec["steps_per_sec"]} chain-steps/s, '
+                       f'{rec["model_tflops_per_sec"]} TFLOP/s, '
+                       f'{rec["mfu_vs_arm_peak"]} of the '
+                       f'{rec["matmul_type"]} peak {rec["peak_tflops"]}; '
+                       f'tuner {rec["warmup_wall_s"]} s, eps '
+                       f'{rec["eps_mean"]:.3g}, L {rec["L_mean"]:.3g}')
+        # launched in the arms' processes, counted there by the wrappers
+        self.path_launches['dtype_ab'] = {'isokinetic_momentum': totals[0],
+                                          'partial_refresh': totals[1]}
+        self.timings['dtype_ab'] = {'wall_s': wall, 'arms': records}
+        self._ab_step_check(ab, records)
+
+    def _ab_step_check(self, ab, records):
+        """One MCLMC step at AB_SHAPE (the f32strict arm's posterior, its
+        tuned mean ε and L) from a random state with injected normals,
+        through the kernels and through the plain versions on the card:
+        positions within STEP_X_TOL, momenta within STEP_U_ATOL, ΔE within
+        64 float32 units of |logp| + |logp'| + |ΔK|."""
+        torch = self.torch
+        from mile_tpu_torch.mcmc import mclmc
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        bayes, x, y = ab.build(None, self.dev, width=AB_WIDTH)
+        vg = bayes.logdensity_and_grad_fn(x, y)
+        gen = torch.Generator().manual_seed(37)
+        position = (0.02 * torch.randn(*AB_SHAPE, generator=gen)).to(self.dev)
+        momentum = torch.randn(*AB_SHAPE, generator=gen)
+        momentum = (momentum / momentum.norm(dim=1, keepdim=True)).to(
+            self.dev)
+        z = torch.randn(*AB_SHAPE, generator=gen).to(self.dev)
+        tuned = next((r for r in records if r['arm'].startswith('f32strict')
+                      and math.isfinite(r.get('eps_mean', math.nan))
+                      and math.isfinite(r.get('L_mean', math.nan))), None)
+        self.check(tuned is not None, 'the f32strict arm gave a finite '
+                                      'mean eps and L for the step check')
+        if tuned is None:
+            return
+        eps = torch.full((AB_SHAPE[0],), tuned['eps_mean'], device=self.dev)
+        L = torch.full((AB_SHAPE[0],), tuned['L_mean'], device=self.dev)
+        out = {}
+        for kind in ('kernels', 'plain'):
+            kernel = mclmc.build_kernel(vg, torch.Generator().manual_seed(0),
+                                        noise=iter([z]))
+            with contextlib.ExitStack() as stack:
+                if kind == 'plain':
+                    stack.enter_context(self._plain_ops())
+                stack.enter_context(matmul_precision('float32'))
+                start = mclmc.init(position, vg, momentum=momentum)
+                out[kind] = (start, *kernel(start, L, eps))
+        (s0, ks, ki), (_, ps, pi) = out['kernels'], out['plain']
+        x_atol, x_rtol = STEP_X_TOL
+        dx = float(((ks.position - ps.position).abs()
+                    / (x_atol + x_rtol * ps.position.abs())).max())
+        du = float((ks.momentum - ps.momentum).abs().max())
+        unit = 2.0 ** -23 * (s0.logdensity.abs() + pi.logdensity.abs()
+                             + pi.kinetic_change.abs())
+        de_units = float(((ki.energy_change - pi.energy_change).abs()
+                          / unit).max())
+        self.timings['dtype_ab_step_check'] = {
+            'x_within_tol': dx, 'max_du': du, 'dE_units': de_units}
+        self.check(dx <= 1.0 and du <= STEP_U_ATOL and de_units <= 64.0,
+                   f'one MCLMC step {AB_SHAPE} on the streaming route, '
+                   f'kernels vs plain versions, same state and normals: '
+                   f'positions within {dx:.2f} of atol {x_atol:g} + rtol '
+                   f'{x_rtol:g} |x|, max|du| {du:.2e} (atol '
+                   f'{STEP_U_ATOL:g}), dE {de_units:.1f} float32 units')
+
+    def nuts_scripts(self):
+        """``torch_time_warmup.py`` and ``torch_profile_nuts.py`` on the
+        card (NUTS_SCRIPTS' step counts): both exit 0 and print finite
+        times."""
+        number = r'([0-9.]+(?:e-?[0-9]+)?)'
+        patterns = {
+            'torch_time_warmup.py': {
+                'first_run_s': rf'compile\+run={number}s',
+                'run_s': rf'  run={number}s'},
+            'torch_profile_nuts.py': {
+                'value_and_grad_ms': rf'value_and_grad \(12 chains\): '
+                                     rf'{number} ms',
+                'leapfrog_ms': rf'leapfrog \(12 chains\): {number} ms',
+                'nuts_run_s': rf'chains in {number}s',
+                'mean_tree': rf'mean tree size: {number} leapfrogs'}}
+        out = {}
+        for script, args in NUTS_SCRIPTS.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / 'experiments' / script), *args,
+                 '--device', self.dev.type], cwd=ROOT, capture_output=True, text=True,
+                timeout=NUTS_SCRIPT_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            print(textwrap.indent(proc.stdout.strip(), '  '))
+            found = {k: re.search(v, proc.stdout)
+                     for k, v in patterns[script].items()}
+            values = {k: float(m.group(1)) for k, m in found.items() if m}
+            ok = (proc.returncode == 0 and len(values) == len(found)
+                  and all(math.isfinite(v) and v > 0
+                          for v in values.values()))
+            if not ok:
+                print(textwrap.indent(proc.stderr[-3000:], '    '))
+            self.check(ok, f'{script} {" ".join(args)}: exit '
+                           f'{proc.returncode}, {values}, {wall:.1f} s')
+            out[script] = {**values, 'wall_s': wall}
+        self.timings['nuts_scripts'] = out
+
     # ---------------------------------------------------------- timings
     def _time_ms(self, fn, n: int = 500, reps: int = 5) -> float:
         torch = self.torch
@@ -2731,12 +3325,8 @@ Step by step: each card step is held against the same step taken on
                                         for _ in range(3))
             counter = ops.step_counter(0, self.dev)
             elems = n_chains * dim
-            # bytes each call must move: the main path has no
-            # preconditioner. K1: u, g, x, eps in, u', x' out, the dK sum
-            # read and written. K3: u, eps, L, dK, logp', logp in, u' and
-            # dE out, both sums and the counter read and written.
-            k1_bytes = 4 * (5 * elems + 3 * n_chains)
-            k3_bytes = 4 * (2 * elems + 10 * n_chains) + 16
+            # the main path has no preconditioner
+            k1_bytes, k3_bytes = kernel_bytes(n_chains, dim)
             cases = {
                 'isokinetic_momentum': (
                     lambda: ops.isokinetic_momentum(
@@ -2771,8 +3361,8 @@ Step by step: each card step is held against the same step taken on
                        'bound_by': 'bytes' if t_bytes >= t_ops
                        else 'operations',
                        'bytes': nbytes, 'operations': nops}
-                if plain is not None:
-                    row.update(plain_ms=self._time_ms(plain),
+                if plain is not None:   # 0.3-0.9 ms a call: 5 x 100 calls
+                    row.update(plain_ms=self._time_ms(plain, n=100),
                                plain_graph_ms=self._graph_ms(plain))
                 key = f'{name} ({n_chains}, {dim})'
                 self.timings[key] = row
@@ -2814,12 +3404,25 @@ def multiprocess_run(bayes, x, y, scfg, members, mesh):
                      mesh=mesh)
 
 
+def multiprocess_warmstart_config(name: str):
+    """The main path's config with the warm start cut to MP_WS_EPOCHS
+    epochs, its experiment ``name`` under MP_RESULTS."""
+    from mile_tpu_torch.config import Config
+
+    (config,) = Config.from_file(CONFIG)
+    return config.replace(
+        saving_dir=str(MP_RESULTS), experiment_name=name,
+        **{**CUT, 'training.warmstart.max_epochs': MP_WS_EPOCHS})
+
+
 def multiprocess_worker(rank: int, port: int) -> int:
     """One rank of the multi-process phase: join the gloo group of 2 at
     ``localhost:port``, run :func:`multiprocess_run` over a chain mesh of
     cuda:0 twice on each rank, try the in-step check on arrays that differ
     by rank, write and read the members through torch.distributed.
-    checkpoint with the other rank; rank 0 writes what it got."""
+    checkpoint with the other rank, warm start
+    :func:`multiprocess_warmstart_config` through BDETrainer over both
+    ranks; rank 0 writes what it got."""
     import numpy as np
     import torch
 
@@ -2831,6 +3434,7 @@ def multiprocess_worker(rank: int, port: int) -> int:
         load_ensemble,
         save_ensemble,
     )
+    from mile_tpu_torch.train.trainer import BDETrainer
 
     distributed.initialize_distributed(f'localhost:{port}', 2, rank)
     group = distributed.process_group()
@@ -2849,14 +3453,55 @@ def multiprocess_worker(rank: int, port: int) -> int:
         guard_raised = 'out of step' in str(exc)
     save_ensemble(MP_RESULTS / 'dcp', {'members': members})
     restored = load_ensemble(MP_RESULTS / 'dcp')['members']
+    trainer = BDETrainer(multiprocess_warmstart_config('warmstart'),
+                         devices=[card] * 2)
+    t0 = time.perf_counter()
+    warm = trainer.train_warmstart()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     if rank == 0:
         np.savez(MP_RESULTS / 'rank0.npz', samples=result.samples,
                  restored=restored.numpy(), launches=np.array(launches),
-                 guard_raised=guard_raised, mesh_size=mesh.size)
+                 guard_raised=guard_raised, mesh_size=mesh.size,
+                 warm=warm.cpu().numpy(), warm_s=warm_s,
+                 warm_mesh_size=trainer.mesh.size)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     print(f'rank {rank} ok', flush=True)
     return 0
+
+
+def catalog_fault_worker(mode: str, root: str) -> int:
+    """The catalogue runner over ``root`` on FAULT_JOB, with its trainer
+    replaced by one whose job indexes out of range on the card (a
+    device-side assert; ``mode`` 'assert') or sleeps past the job timeout
+    (``mode`` 'hang'). Returns the runner's exit code."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / 'experiments'))
+    import torch_run_catalog as cat
+
+    from mile_tpu_torch.train import trainer as trainer_mod
+
+    class Faulting:
+        def __init__(self, config, device='cuda'):
+            self.device = torch.device(device)
+
+        def train(self, report=True):
+            if mode == 'hang':
+                time.sleep(10 * FAULT_HANG_TIMEOUT_S)
+            values = torch.zeros(4, device=self.device)
+            index = torch.full((1,), 1 << 20, dtype=torch.long,
+                               device=self.device)
+            values[index].sum().item()
+            raise AssertionError('indexing out of range did not fault')
+
+    trainer_mod.BDETrainer = Faulting
+    timeout = FAULT_HANG_TIMEOUT_S if mode == 'hang' else \
+        FAULT_WORKER_TIMEOUT_S
+    return cat.main(['--root', root, *FAULT_JOB, '--job-timeout',
+                     str(timeout)])
 
 
 def main() -> int:
@@ -2882,8 +3527,7 @@ def main() -> int:
     smoke = Smoke(torch)
     card = card_line()
     print(card, flush=True)
-    built = smoke.phase('build (nvcc, sm_90a)', smoke.build)
-    if built:
+    if smoke.phase('build (nvcc, sm_90a)', smoke.build):
         smoke.phase('K1 isokinetic_momentum vs plain', smoke.k1)
         smoke.phase('K3 partial_refresh vs plain, Philox statistics',
                     smoke.k3)
@@ -2895,11 +3539,12 @@ def main() -> int:
                 smoke.phase('orbax format: the resume snapshot and the warm '
                             'start through torch.distributed.checkpoint',
                             smoke.orbax_format)
-            smoke.phase('mesh: 13 chains over cuda:0 twice, run_mclmc over '
-                        '4 and 2 x 2 entries, 12 chains, dim 674',
-                        smoke.mesh_path)
-            smoke.phase('multi-process: 2 ranks over gloo on cuda:0, '
-                        'run_mclmc, 12 chains, dim 674', smoke.multiprocess)
+            smoke.phase('mesh: 13 chains over cuda:0 twice, the warm start '
+                        'over 2 entries, run_mclmc over 4 and 2 x 2 entries, '
+                        '12 chains, dim 674', smoke.mesh_path)
+            smoke.phase('multi-process: 2 ranks over gloo on cuda:0, the '
+                        'warm start and run_mclmc, 12 chains, dim 674',
+                        smoke.multiprocess)
         smoke.phase('stream_samples and warmstart_exp_dir: BDETrainer on '
                     'airfoil, 12 chains, dim 674', smoke.stream_and_reuse)
         smoke.phase('partition path: BDETrainer on energy PartitionFCN, 12 '
@@ -2918,6 +3563,16 @@ def main() -> int:
                         smoke.hmc_run)
         smoke.phase('split HMC: torch_symmetric_splitting.py on LeNet, dim '
                     '61,706, 49 shards of 64', smoke.split_hmc)
+        smoke.phase(f'catalogue: torch_run_catalog.run_queue over '
+                    f'{len(CATALOG_JOBS)} jobs at full width', smoke.catalog)
+        smoke.phase('catalogue faults: a device-side assert in worker '
+                    'processes, strikes, skip, hang', smoke.catalog_fault)
+        smoke.phase('dtype A/B: torch_dtype_ab_widefcn.py, FCN [512 x 3, 2],'
+                    ' 12 chains, dim 592,386, the streaming route',
+                    smoke.dtype_ab)
+        smoke.phase('NUTS scripts: torch_time_warmup.py and '
+                    'torch_profile_nuts.py on bikesharing',
+                    smoke.nuts_scripts)
         smoke.phase('timings at ' + ', '.join(
             f'({c}, {d})' for c, d in TIMED_SHAPES), smoke.kernel_timings)
     if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))
@@ -2944,7 +3599,9 @@ def main() -> int:
             'replaces': replaces,
             # the airfoil, partition, image and text paths, the MCLMC
             # resume phase, the streaming trainer, the mesh, the
-            # multi-process phase's one-process run and the orbax resume
+            # multi-process phase's one-process run, the orbax resume, the
+            # catalogue's MCLMC jobs and the dtype A/B's arms (counted in
+            # their processes)
             'launches': smoke.launches.get(name, 0) + sum(
                 path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,
@@ -2966,4 +3623,6 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--multiprocess-worker']:
         sys.exit(multiprocess_worker(int(sys.argv[2]), int(sys.argv[3])))
+    if sys.argv[1:2] == ['--catalog-fault-worker']:
+        sys.exit(catalog_fault_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

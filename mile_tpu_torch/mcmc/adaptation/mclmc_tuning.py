@@ -17,7 +17,12 @@ Phase 1+2 (ratio 0.8/0.1 of the budget): one kernel step per iteration.
     branch): state reverted, ε cap shrunk by 0.8, the sample excluded.
 
 Phase 3 (ratio 0.1): run the tuned kernel, estimate the ESS of the trace
-by FFT autocorrelation, refine ``L = 0.4 · ε · n_steps / ESS``.
+by FFT autocorrelation, refine ``L = 0.4 · ε · n_steps / ESS``. A
+coordinate whose trace stays constant (with diagonal preconditioning, one
+whose phase-2 variance rounded to 0 and was clamped to 1e-30 moves by
+less than a float32 unit) gets the ESS the JAX package's compiled tuner
+gives it (:func:`~mile_tpu_torch.mcmc.diagnostics.constant_trace_ess`),
+not NaN, which would make the chain's L NaN and its draws with it.
 
 The schedule value v(t) is a host number, so a step makes no host sync.
 """
@@ -29,7 +34,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from mile_tpu_torch.mcmc import mclmc
-from mile_tpu_torch.mcmc.diagnostics import effective_sample_size
+from mile_tpu_torch.mcmc.diagnostics import (
+    constant_trace_ess,
+    effective_sample_size,
+)
 
 
 class MCLMCTuningParams(NamedTuple):
@@ -158,6 +166,10 @@ def _phase3_refine_L(kernel, cfg: TuningConfig, state, params,
         trace = trace[idx.to(trace.device)]
     # one chain per ESS: the chain axis rides along as a parameter axis
     ess = effective_sample_size(trace[None])           # (C, coords)
+    # (two equal values average exactly, and give NaN there too)
+    frozen = (trace == trace[:1]).all(dim=0)
+    if trace.shape[0] > 2 and bool(frozen.any()):
+        ess = torch.where(frozen, constant_trace_ess(trace.shape[0]), ess)
     L = 0.4 * params.step_size * torch.mean(num_steps / ess, dim=1)
     return state, params._replace(L=L)
 

@@ -44,7 +44,24 @@ def effective_sample_size(samples: torch.Tensor) -> torch.Tensor:
         var_plus = var_plus + chain_mean.var(dim=0, correction=1)
 
     rho = 1.0 - (w - mean_acov) / var_plus            # (N, ...)
+    return ess_from_autocorrelation(rho, c, n)
 
+
+def constant_trace_ess(n: int) -> float:
+    """The ESS the JAX package's compiled tuner gives a coordinate whose
+    ``n`` draws (one chain) are all equal. XLA's mean of equal float32
+    values is inexact, so such a trace is centred on a tiny constant
+    offset, whose autocorrelation at lag t is (n - t)/n - 1/(n - 1) at any
+    offset; centred exactly, the estimator divides 0 by 0."""
+    t = torch.arange(n, dtype=torch.float64)
+    return float(ess_from_autocorrelation((n - t) / n - 1.0 / (n - 1.0),
+                                          1, n))
+
+
+def ess_from_autocorrelation(rho: torch.Tensor, c: int, n: int
+                             ) -> torch.Tensor:
+    """Geyer's initial monotone sequence estimate over the pooled
+    autocorrelation ``rho`` (N, ...) of ``c`` chains of ``n`` draws."""
     # Geyer pair sums P_k = rho_{2k} + rho_{2k+1}
     n_pairs = n // 2
     pairs = rho[: 2 * n_pairs].reshape(n_pairs, 2, *rho.shape[1:]).sum(dim=1)

@@ -8,11 +8,14 @@ or chains x data with ``data_sharding > 1``. Sampling pads a chain count
 that does not divide over the devices with wrap-around duplicates of real
 chains (13 chains over 8 devices run as 16) and drops the pad chains from
 every result and from the sink; partition and frozen sampling do not pad.
-The mesh shards the log-posterior's value and gradient; the chain batch,
-the kernels and the randomness stay on its first device, as does the warm
-start. In a multi-process run (:mod:`mile_tpu_torch.parallel.distributed`)
-the chains axis spans the ranks: rank 0 makes the experiment directory,
-computes the warm start, which it broadcasts, and does every write.
+The mesh shards the log-posterior's value and gradient, and the warm
+start's forward and backward passes by rows of members (over the divisor
+mesh: the warm start pads nothing); the chain batch, the kernels, the
+optimizer and the randomness stay on its first device. In a multi-process
+run (:mod:`mile_tpu_torch.parallel.distributed`) the chains axis spans the
+ranks: rank 0 makes the experiment directory, every rank runs the warm
+start's loop on the gathered gradients (rank 0 loads a reused one and
+broadcasts it), and rank 0 does every write.
 
 Draws stream to disk while sampling runs, through the native sink
 (``samples/chain_{c}/samples.bin``); where it cannot be built the trainer
@@ -216,8 +219,9 @@ class BDETrainer:
         ``warmstart/params_*.npz`` in id order): flat members (n_chains,
         dim) on the first device, saved again into this run's
         ``warmstart/`` (and ``warmstart/orbax/`` with ``checkpoint_format:
-        orbax``). Rank 0 computes them and broadcasts them to the other
-        ranks."""
+        orbax``). Trained members come from every rank's loop over the
+        mesh; reused or fresh ones from rank 0. Rank 0's are broadcast to
+        the other ranks."""
         cfg = self.config.training.warmstart
         with measure_time('time.warmstart'):
             src = (Path(cfg.warmstart_exp_dir) / 'warmstart'
@@ -225,7 +229,7 @@ class BDETrainer:
             params = None
             if src is not None and (src / 'orbax').exists():
                 params = self._load_orbax(src / 'orbax')   # every rank
-            elif self.primary:
+            elif self.primary or (src is None and cfg.include):
                 params = self._warmstart(cfg, src)
             if self.group is not None:
                 params = distributed.broadcast_tensor(
@@ -255,7 +259,9 @@ class BDETrainer:
         if cfg.include:
             params, store = train_ensemble(
                 self.model, self.loader, cfg, self.config.data.task,
-                self.n_chains, self._gen_train)
+                self.n_chains, self._gen_train, mesh=self.mesh)
+            if not self.primary:
+                return params
             store.save(self.warmstart_dir / 'metrics.pkl')
             try:
                 from mile_tpu_torch.viz import plot_warmstart_results

@@ -26,6 +26,18 @@ they would hold every member's activations of the whole split at once
 attention classifier holds 8 heads x 70 x 70 attention weights per member
 and sequence). The warm start runs in exact float32, convolutions included
 (see :mod:`mile_tpu_torch.utils.precision`).
+
+With a ``mesh`` (:class:`~mile_tpu_torch.parallel.mesh.ChainMesh`, the
+counterpart of the JAX package's members sharded over the ``chains``
+axis) each grid row's first entry computes the forward and backward pass
+of its own rows of members, on its batches, from training data placed on
+it once; the gradients and the step's metrics are gathered to the first
+device (and, across processes, to every rank), where the optimizer, the
+batch plan, early stopping and the validation and test forwards run as
+without a mesh. So every rank runs the loop on the same gathered values,
+and the result does not depend on the mesh: on the CPU it equals one
+device's bit for bit. The data axis is not split: a member's mean loss
+summed in parts would round otherwise.
 """
 from __future__ import annotations
 
@@ -47,6 +59,8 @@ from mile_tpu_torch.inference.metrics import (
     gaussian_nlll,
     squared_error,
 )
+from mile_tpu_torch.parallel.distributed import all_gather_rows
+from mile_tpu_torch.parallel.mesh import split_bounds
 from mile_tpu_torch.utils.precision import matmul_precision
 
 logger = logging.getLogger(__name__)
@@ -87,6 +101,11 @@ def task_fns(task: Task) -> tuple[Callable, Callable, type]:
     return _class_loss, _class_metrics, ClassificationMetrics
 
 
+# the keys of each task's step metrics, in the order of its metrics_fn
+METRIC_NAMES = {Task.REGRESSION: ('nlll', 'rmse'),
+                Task.CLASSIFICATION: ('cross_entropy', 'accuracy')}
+
+
 def earlystop_mask(losses: np.ndarray, patience: int | None) -> np.ndarray:
     """Per-member stop decision from the validation-loss history
     ``losses`` (n_members, n_epochs): stop when the last ``patience``
@@ -100,20 +119,74 @@ def earlystop_mask(losses: np.ndarray, patience: int | None) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- training
+class MemberShards:
+    """The members' rows of each entry of ``mesh``'s chains axis: the
+    forward and backward pass of a step split by rows of members, each
+    part on its entry (the first of its grid row), gathered to the
+    members' device and across the ranks of ``mesh.group``. Without a
+    mesh all members form one part on the training data's device.
+    ``task`` names the step's metrics."""
+
+    def __init__(self, mesh, n_members: int, x_all, y_all, task: Task):
+        self.names = METRIC_NAMES[task]
+        self.group = None if mesh is None else mesh.group
+        if mesh is None:
+            self.parts = [(x_all.device, 0, n_members)]
+        else:
+            n_local = len(mesh.grid)
+            bounds = split_bounds(n_members, mesh.shape['chains'])
+            mine = bounds[mesh.rank * n_local:(mesh.rank + 1) * n_local]
+            self.parts = [(row[0], s, e)
+                          for row, (s, e) in zip(mesh.grid, mine) if e > s]
+            self.counts = [bounds[(r + 1) * n_local - 1][1]
+                           - bounds[r * n_local][0]
+                           for r in range(mesh.n_procs)]
+        self.data = {}   # the training data on each entry, placed once
+        for dev, _, _ in self.parts:
+            if dev not in self.data:
+                self.data[dev] = (x_all.to(dev), y_all.to(dev))
+
+    def grad_and_metrics(self, model, flat, loss_fn, metrics_fn,
+                         rows: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The members' loss gradient ``(M, dim)`` and the step's metrics
+        on their batches ``rows`` (M, B), on ``flat``'s device."""
+        dim = flat.shape[1]
+        blocks = []
+        for dev, s, e in self.parts:
+            x_all, y_all = self.data[dev]
+            r = rows[s:e].to(dev)
+            x, y = x_all[r], y_all[r]
+            theta = flat.detach()[s:e].to(dev).detach().requires_grad_(True)
+            lvals = model(theta, x)
+            (grad,) = torch.autograd.grad(loss_fn(lvals, y).sum(), theta)
+            with torch.no_grad():
+                m = metrics_fn(lvals.detach(), y)
+            blocks.append(torch.cat(
+                [grad] + [m[k][:, None] for k in self.names],
+                dim=1).to(flat.device))
+        block = (torch.cat(blocks) if blocks
+                 else flat.new_zeros((0, dim + len(self.names))))
+        if self.group is not None:
+            block = all_gather_rows(block, self.counts, self.group)
+        return block[:, :dim].contiguous(), {k: block[:, dim + i]
+                                for i, k in enumerate(self.names)}
+
+
 def member_step(model, flat: torch.Tensor, optimizer, loss_fn, metrics_fn,
-                x_all, y_all, rows: torch.Tensor, stopped: np.ndarray,
+                shards: MemberShards, rows: torch.Tensor,
+                stopped: np.ndarray,
                 frozen: torch.Tensor | None = None) -> dict:
     """One optimizer step of every member on its batch ``rows`` (M, B).
 
     Members flagged in ``stopped`` keep their parameters and optimizer
     state; the coordinates indexed by ``frozen`` keep their values in
-    every member. Returns the step's per-member metrics (NaN where
-    stopped).
+    every member. ``shards`` runs the forward and backward pass, split
+    over the mesh's entries where it has more than one. Returns the step's
+    per-member metrics (NaN where stopped).
     """
-    x, y = x_all[rows], y_all[rows]          # (M, B, *input_shape), (M, B)
     optimizer.zero_grad(set_to_none=True)
-    lvals = model(flat, x)
-    loss_fn(lvals, y).sum().backward()
+    flat.grad, m = shards.grad_and_metrics(model, flat, loss_fn, metrics_fn,
+                                           rows)
     if frozen is not None:
         flat.grad[:, frozen] = 0.0
         held = flat.detach()[:, frozen]
@@ -133,8 +206,6 @@ def member_step(model, flat: torch.Tensor, optimizer, loss_fn, metrics_fn,
             if torch.is_tensor(v) and v.shape == flat.shape]
         for new, old in zip(current, saved):
             new[keep] = old[keep]
-    with torch.no_grad():
-        m = metrics_fn(lvals.detach(), y)
     if keep is not None:
         m = {k: torch.where(keep, torch.full_like(v, float('nan')), v)
              for k, v in m.items()}
@@ -152,17 +223,18 @@ def _to_metrics(cls: type, hist: list[dict], n_members: int) -> Metrics:
 
 def train_ensemble(model, loader, config: WarmstartConfig, task: Task,
                    n_members: int, generator: torch.Generator,
-                   init: torch.Tensor | None = None
+                   init: torch.Tensor | None = None, mesh=None
                    ) -> tuple[torch.Tensor, MetricsStore]:
-    """Train ``n_members`` networks; returns (flat params (M, dim) on the
-    loader's device, metrics)."""
+    """Train ``n_members`` networks, the forward and backward passes split
+    over ``mesh``'s chains axis (:class:`MemberShards`); returns (flat params (M, dim) on the loader's device,
+    metrics)."""
     with matmul_precision('float32'):
         return _train_ensemble(model, loader, config, task, n_members,
-                               generator, init)
+                               generator, init, mesh)
 
 
 def _train_ensemble(model, loader, config, task, n_members, generator,
-                    init):
+                    init, mesh):
     loss_fn, metrics_fn, metrics_cls = task_fns(task)
     x_all, y_all = loader.arrays('train')
     device = x_all.device
@@ -170,6 +242,7 @@ def _train_ensemble(model, loader, config, task, n_members, generator,
         init = model.init(n_members, generator)
     flat = init.to(device).clone().requires_grad_(True)
     optimizer = config.optimizer_config.build([flat])
+    shards = MemberShards(mesh, n_members, x_all, y_all, task)
     frozen = None
     if config.partition_warmstart:
         from mile_tpu_torch.bayes.partition import partition_mask
@@ -195,7 +268,7 @@ def _train_ensemble(model, loader, config, task, n_members, generator,
             n_members, n_batches, batch_size).to(device)
         for b in range(n_batches):
             train_hist.append(member_step(
-                model, flat, optimizer, loss_fn, metrics_fn, x_all, y_all,
+                model, flat, optimizer, loss_fn, metrics_fn, shards,
                 plan[:, b], stopped, frozen))
         if has_valid:
             valid_hist.append(metrics_fn(

@@ -387,10 +387,11 @@ def test_adamw_member_steps_match_optax():
     flat = t(init).requires_grad_(True)
     optimizer = OptimizerConfig.from_dict(adamw).build([flat])
     loss_fn, metrics_fn, _ = ws.task_fns(Task.CLASSIFICATION)
+    shards = ws.MemberShards(None, n_members, torch.from_numpy(x),
+                             torch.from_numpy(y), Task.CLASSIFICATION)
     for s in range(n_steps):
         metrics = ws.member_step(model, flat, optimizer, loss_fn, metrics_fn,
-                                 torch.from_numpy(x), torch.from_numpy(y),
-                                 torch.from_numpy(plan[:, s]),
+                                 shards, torch.from_numpy(plan[:, s]),
                                  np.zeros(n_members, dtype=bool))
     assert set(metrics) == {'cross_entropy', 'accuracy'}
     np.testing.assert_allclose(flat.detach().numpy(), want, rtol=1e-5,

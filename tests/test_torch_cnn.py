@@ -285,10 +285,11 @@ def test_lenetti_warmstart_adam_steps_match_optax():
     flat = t(init).requires_grad_(True)
     optimizer = OptimizerConfig.from_dict(adam).build([flat])
     loss_fn, metrics_fn, _ = ws.task_fns(Task.CLASSIFICATION)
+    shards = ws.MemberShards(None, n_members, t(x), torch.from_numpy(y),
+                             Task.CLASSIFICATION)
     for s in range(n_steps):
         metrics = ws.member_step(model, flat, optimizer, loss_fn, metrics_fn,
-                                 t(x), torch.from_numpy(y),
-                                 torch.from_numpy(plan[:, s]),
+                                 shards, torch.from_numpy(plan[:, s]),
                                  np.zeros(n_members, dtype=bool))
     assert set(metrics) == {'cross_entropy', 'accuracy'}
     np.testing.assert_allclose(flat.detach().numpy(), want, rtol=1e-5,

@@ -240,6 +240,9 @@ def test_port_imports_no_jax_and_no_mile_tpu():
     files = (sorted(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
              + sorted((ROOT / 'experiments').glob('torch_*.py')))
     assert ROOT / 'experiments' / 'torch_symmetric_splitting.py' in files
+    for script in ('torch_run_catalog.py', 'torch_dtype_ab_widefcn.py',
+                   'torch_time_warmup.py', 'torch_profile_nuts.py'):
+        assert ROOT / 'experiments' / script in files
     assert PACKAGE / 'mcmc' / 'split_hmc.py' in files
     for name in ('parallel/__init__.py', 'parallel/mesh.py',
                  'parallel/distributed.py', 'bayes/sharded.py',

@@ -11,6 +11,8 @@ over 8 entries and drops the pad chains everywhere, and runs
 ``data_sharding: 2`` end to end; the CLI takes ``--devices``,
 ``--device_limit``, ``--multihost`` and ``--outer_parallel``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,6 +259,87 @@ def test_trainer_data_sharding_end_to_end(tmp_path):
     assert np.isfinite(result.samples).all()
     np.testing.assert_array_equal(load_flat_samples(trainer.samples_dir),
                                   result.samples)
+
+
+# ------------------------------------------------------------ warm start
+def _warm_start(mesh, partition=False, n_members=6):
+    """``train_ensemble`` on the airfoil loader (FCN [16, 16, 2], or the
+    partition warm start of a PartitionFCN [8, 8, 8, 2]), AdamW at
+    learning rate 0.1, 4 epochs of batch 32 with early stopping at
+    patience 1 (so that some members stop before others), over
+    ``mesh``."""
+    from mile_tpu_torch.config.data import DataConfig, Task
+    from mile_tpu_torch.config.models import FCNConfig, PartitionFCNConfig
+    from mile_tpu_torch.config.training import WarmstartConfig
+    from mile_tpu_torch.data import build_loader
+    from mile_tpu_torch.models import build_model
+    from mile_tpu_torch.train.warmstart import train_ensemble
+    from mile_tpu_torch.utils.keys import experiment_keys
+
+    loader = build_loader(
+        DataConfig(path='data/airfoil.data', task=Task.REGRESSION,
+                   datapoint_limit=300, train_split=0.7, valid_split=0.1,
+                   test_split=0.2), experiment_keys(0).loader, 'cpu')
+    hidden = [8, 8, 8, 2] if partition else [16, 16, 2]
+    model_cfg = (PartitionFCNConfig if partition else FCNConfig)(
+        hidden_structure=hidden)
+    model = build_model(model_cfg, loader.input_shape)
+    cfg = WarmstartConfig.from_dict({
+        'max_epochs': 4, 'batch_size': 32, 'patience': 1,
+        'partition_warmstart': partition,
+        'optimizer_config': {'name': 'adamw', 'parameters': {
+            'learning_rate': 0.1, 'weight_decay': 0.001}}})
+    return train_ensemble(model, loader, cfg, Task.REGRESSION, n_members,
+                          torch.Generator().manual_seed(3), mesh=mesh)
+
+
+@pytest.mark.parametrize('case', ['fcn', 'partition', 'chains x data',
+                                  'more entries than members'])
+def test_warm_start_on_a_mesh_is_bitwise_one_device(case):
+    """The warm start's forward and backward passes split by rows of
+    members over a 4-entry chain mesh (a 2 x 2 chains x data mesh: the
+    data axis is not split; 8 entries for 6 members: two hold none) equal
+    one device's bit for bit: the members, and every metric of the
+    store."""
+    mesh = {'fcn': chain_mesh(4, ['cpu'] * 4),
+            'partition': chain_mesh(4, ['cpu'] * 4),
+            'chains x data': chain_data_mesh(2, 2, ['cpu'] * 4),
+            'more entries than members': chain_mesh(8, CPU8)}[case]
+    partition = case == 'partition'
+    want, want_store = _warm_start(None, partition)
+    got, store = _warm_start(mesh, partition)
+    assert torch.equal(got, want)
+    for split in ('train', 'valid', 'test'):
+        a, b = getattr(store, split), getattr(want_store, split)
+        for name, value in dataclasses.asdict(a).items():
+            np.testing.assert_array_equal(value, getattr(b, name),
+                                          err_msg=f'{split}.{name}')
+    stopped = np.isnan(want_store.train.nlll[:, -1])
+    assert stopped.any() and not stopped.all()
+
+
+def test_trainer_warm_start_runs_over_its_mesh(tmp_path, monkeypatch):
+    """``BDETrainer(devices=['cpu'] * 4)`` with 4 chains passes its divisor
+    mesh of 4 entries to the warm start, whose members equal a one-device
+    trainer's bit for bit."""
+    from mile_tpu_torch.train import trainer as trainer_mod
+
+    seen = []
+    real = trainer_mod.train_ensemble
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get('mesh'))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(trainer_mod, 'train_ensemble', spy)
+    on_mesh = trainer_mod.BDETrainer(_trainer_config(tmp_path / 'a', 4),
+                                     devices=['cpu'] * 4)
+    members = on_mesh.train_warmstart()
+    alone = trainer_mod.BDETrainer(_trainer_config(tmp_path / 'b', 4),
+                                   device='cpu')
+    assert torch.equal(members, alone.train_warmstart())
+    assert seen[0] is on_mesh.mesh and seen[0].shape == {'chains': 4}
+    assert seen[1].size == 1
 
 
 # ------------------------------------------------------------------- CLI

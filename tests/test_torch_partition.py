@@ -205,8 +205,10 @@ def test_partition_warmstart_matches_jax():
     loss_fn, metrics_fn, _ = ws.task_fns(t_loader.config.task)
     hidden = ~part.partition_mask(model.layout)
     frozen = torch.as_tensor(np.nonzero(hidden)[0])
+    shards = ws.MemberShards(None, n_members, tx_, ty_,
+                             t_loader.config.task)
     for s in range(n_steps):
-        ws.member_step(model, flat, optimizer, loss_fn, metrics_fn, tx_, ty_,
+        ws.member_step(model, flat, optimizer, loss_fn, metrics_fn, shards,
                        torch.from_numpy(plan[:, s]),
                        np.zeros(n_members, dtype=bool), frozen)
     ours = flat.detach().numpy()

@@ -1,6 +1,7 @@
 """The port's MCMC diagnostics and MCLMC tuner against analytic
 expectations and the JAX package."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -132,6 +133,72 @@ def test_tuned_parameters_match_jax_over_seeds(diagonal):
         se = np.sqrt((a.var() + b.var()) / n_seeds)
         assert abs(a.mean() - b.mean()) < min(4 * se, 0.15), (a, b)
         assert 0.5 < b.std() / a.std() < 2.0, (a, b)
+
+
+@pytest.mark.parametrize('n', [3, 10, 11, 40])
+def test_constant_trace_ess_is_the_compiled_jax_value(n):
+    """Draws that are all equal: the JAX package's ESS, compiled (as its
+    tuner runs it), centres them on XLA's inexact mean and gives the ESS
+    of a constant offset, which ``constant_trace_ess`` computes (rtol
+    1e-5); centred exactly, the estimator gives NaN."""
+    from mile_tpu_torch.mcmc.diagnostics import constant_trace_ess
+
+    values = np.random.default_rng(n).normal(size=50).astype(np.float32)
+    trace = np.repeat(values[None, None], n, axis=1)
+    want = np.asarray(jax.jit(jax_diag.effective_sample_size)(trace))
+    np.testing.assert_allclose(want, constant_trace_ess(n), rtol=1e-5)
+    assert np.isnan(effective_sample_size(t(trace)).numpy()).any()
+
+
+def test_phase3_L_is_finite_with_a_frozen_coordinate():
+    """Phase 3 with a preconditioner entry clamped to 1e-15 (a coordinate
+    whose phase-2 variance rounded to 0): the coordinate's trace stays
+    constant, and every chain's L is finite, as in the JAX package's
+    compiled phase 3 from the same states; the two L agree within 15 %
+    (each package with its own noise, 10 steps)."""
+    from mile_tpu.mcmc import mclmc as jax_mclmc
+    from mile_tpu.mcmc.adaptation import mclmc_tuning as jax_tuning
+    from mile_tpu_torch.mcmc import mclmc
+    from mile_tpu_torch.mcmc.adaptation.mclmc_tuning import (
+        MCLMCTuningParams,
+        TuningConfig,
+        _phase3_refine_L,
+    )
+
+    loader, _, _, bayes = jax_airfoil()
+    t_loader, _, t_bayes = torch_airfoil()
+    n_chains, dim = 8, bayes.dim
+    rng = np.random.default_rng(5)
+    theta = (0.3 * rng.normal(size=(n_chains, dim))).astype(np.float32)
+    sdc = np.ones((n_chains, dim), np.float32)
+    sdc[:, [3, 400]] = 1e-15
+    eps = np.full(n_chains, 0.05, np.float32)
+    L = np.full(n_chains, 1.0, np.float32)
+    x, y = loader.arrays('train')
+    logdensity = bayes.logdensity_fn(x, y)
+    kernel = jax_mclmc.build_kernel(logdensity)
+
+    def jax_phase3(position, key):
+        state = jax_mclmc.init(position, logdensity, key)
+        params = jax_tuning.MCLMCTuningParams(
+            L=jnp.asarray(1.0), step_size=jnp.asarray(0.05),
+            sqrt_diag_cov=jnp.asarray(sdc[0]))
+        return jax_tuning._phase3_refine_L(
+            kernel, jax_tuning.TuningConfig(), state, params, 10, key)[1].L
+
+    want = np.asarray(jax.jit(jax.vmap(jax_phase3))(
+        theta, jax.random.split(jax.random.PRNGKey(0), n_chains)))
+    tx, ty = t_loader.arrays('train')
+    vg = t_bayes.logdensity_and_grad_fn(tx, ty)
+    gen = torch.Generator().manual_seed(0)
+    state = mclmc.init(t(theta), vg, gen)
+    params = MCLMCTuningParams(L=t(L), step_size=t(eps),
+                               sqrt_diag_cov=t(sdc))
+    end, got = _phase3_refine_L(mclmc.build_kernel(vg, gen), TuningConfig(),
+                                state, params, 10, gen)
+    assert torch.equal(end.position[:, [3, 400]], state.position[:, [3, 400]])
+    assert np.isfinite(want).all() and torch.isfinite(got.L).all()
+    assert abs(np.log(got.L.numpy().mean() / want.mean())) < 0.15
 
 
 def test_nonfinite_proposals_are_rejected_per_chain():

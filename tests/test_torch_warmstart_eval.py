@@ -58,9 +58,10 @@ def test_adamw_steps_match_optax():
     optimizer = OptimizerConfig.from_dict(ADAMW).build([flat])
     loss_fn, metrics_fn, _ = ws.task_fns(t_loader.config.task)
     stopped = np.zeros(n_members, dtype=bool)
+    shards = ws.MemberShards(None, n_members, tx_, ty_, t_loader.config.task)
     for s in range(n_steps):
         metrics = ws.member_step(model, flat, optimizer, loss_fn, metrics_fn,
-                                 tx_, ty_, torch.from_numpy(plan[:, s]),
+                                 shards, torch.from_numpy(plan[:, s]),
                                  stopped)
     assert set(metrics) == {'nlll', 'rmse'}
     np.testing.assert_allclose(flat.detach().numpy(), want, rtol=1e-5,
@@ -87,12 +88,13 @@ def test_stopped_members_keep_parameters_and_optimizer_state():
     loss_fn, metrics_fn, _ = ws.task_fns(loader.config.task)
     rows = torch.arange(96).reshape(3, 32)
     none = np.zeros(3, dtype=bool)
-    ws.member_step(model, flat, optimizer, loss_fn, metrics_fn, x, y, rows,
+    shards = ws.MemberShards(None, 3, x, y, loader.config.task)
+    ws.member_step(model, flat, optimizer, loss_fn, metrics_fn, shards, rows,
                    none)
     before = flat.detach().clone()
     state = {k: v.clone() for k, v in optimizer.state[flat].items()
              if torch.is_tensor(v) and v.shape == flat.shape}
-    m = ws.member_step(model, flat, optimizer, loss_fn, metrics_fn, x, y,
+    m = ws.member_step(model, flat, optimizer, loss_fn, metrics_fn, shards,
                        rows, np.array([False, True, False]))
     assert torch.equal(flat[1], before[1])
     assert not torch.equal(flat[0], before[0])
