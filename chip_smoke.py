@@ -94,6 +94,16 @@ starts 13 members over two entries against one device, and the
 multi-process phase warm starts the main path's members through
 ``BDETrainer`` over both ranks against the main path's.
 
+The headline bench: ``bench_torch.py``'s modes in this process at full
+width with the step counts cut (``BENCH_*``): the headline at 12 and 48
+chains after a tuner run, the warm start at 12 and 48 members, airfoil
+chain scaling to 1,536 chains and wide-FCN scaling to 48, the LeNet and
+wide-FCN bf16 points and the CPU denominators, each mode's K1/K3 launches;
+K1 and K3 against their plain versions at each new shape
+(``BENCH_SHAPES``, also timed), K3's noise across 1,536 chains with a
+device step counter, and the bench's fault contract with real worker
+processes (this script's ``bench_fault_drill`` and ``bench_oom_drill``).
+
 It needs a CUDA device and the repository around it: without either it
 exits non-zero and prints no result. It imports nothing of JAX or of the
 JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
@@ -102,6 +112,7 @@ JAX package. The second-to-last line is ``{"kernels": [...]}``, the last
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -118,11 +129,9 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / 'configs' / 'illustrative_airfoil_mclmc.yaml'
 RESULTS = ROOT / 'results' / 'chip_smoke'
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
-# operations/s; both kernels' work is 32-bit arithmetic.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# 32-bit operations per element of the main path's calls (no
+# The card's peaks are mile_tpu_torch.utils.card's (HBM bytes/s, and the
+# float32 rate outside the tensor cores: both kernels' work is 32-bit
+# arithmetic). 32-bit operations per element of the main path's calls (no
 # preconditioner): K1 |g|^2 and u.g (2 fma), a g + b u (mul + fma),
 # |u'|^2 (fma), scale (mul), x + (x_frac eps) u' (2 mul, add), an fma
 # counted as 2; K3 Philox4x32-10 per group of 4 (10 rounds of 2 mul-hi,
@@ -137,8 +146,14 @@ MAX_LAUNCHES_PER_STEP = 214
 # the K1/K3 shapes of the catalogue phase's MCLMC jobs besides (12, 674)
 CATALOG_SHAPES = [(12, 1_282), (12, 786), (12, 5_426), (12, 738),
                   (12, 2_306), (12, 426)]
+# the K1/K3 shapes the bench phase adds: the airfoil chain scaling's counts
+# past 12, the wide FCN's at 4 and 48 chains (the streaming route), LeNet's
+# at 12 chains
+BENCH_SHAPES = [(48, 674), (192, 674), (768, 674), (1_536, 674),
+                (4, 592_386), (48, 592_386), (12, 61_706)]
 TIMED_SHAPES = [(12, 674), (1, 674), (12, 178), (10, 61_706),
-                (8, 65_248), (2, 300_000), (12, 592_386), *CATALOG_SHAPES]
+                (8, 65_248), (2, 300_000), (12, 592_386), *CATALOG_SHAPES,
+                *BENCH_SHAPES]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
@@ -414,6 +429,23 @@ NUTS_SCRIPTS = {'torch_time_warmup.py': ['3', '8'],
                 'torch_profile_nuts.py': ['--warmup-steps', '3',
                                           '--draws', '2']}
 NUTS_SCRIPT_TIMEOUT_S = 600
+# The bench phase: bench_torch.py's modes in this process at full width
+# (the airfoil FCN, LeNet over 60,000 images, the wide FCN over 65,536
+# rows), the step counts cut: the headline's tuner to 200 steps (of 2,000)
+# and 3 timed blocks of 300 (of 7 of 3,000), the warm start to 20 epochs
+# (of 200), the airfoil chain scaling to 50 steps (of 1,000), the wide
+# FCN's to 3 (of 10), the LeNet and wide-FCN points to 3 (of 30 and 10),
+# the CPU denominators to 100 steps
+BENCH_RESULTS = ROOT / 'results' / 'chip_smoke_bench'
+BENCH_HEADLINE = {'warmup_steps': 200, 'timed_steps': 300, 'n_repeats': 3}
+BENCH_WS_EPOCHS = 20
+BENCH_AIRFOIL = ([12, 48, 192, 768, 1_536], 50)
+BENCH_FCN = ([4, 12, 48], 3)
+BENCH_MFU_STEPS = 3
+BENCH_CPU_STEPS = 100
+# K3 at 1,536 chains: refreshes with a device step counter, whose per-chain
+# noise is held against chance correlation
+PHILOX_CHAINS_STEPS = 200
 
 
 class SimulatedStop(Exception):
@@ -466,14 +498,6 @@ def mclmc_steps(scfg) -> int:
 def fail(msg: str) -> None:
     print(f'chip_smoke: {msg}', file=sys.stderr)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 class Smoke:
@@ -2909,6 +2933,7 @@ Step by step: each card step is held against the same step taken on
         from mile_tpu_torch.config import Sampler, Task
         from mile_tpu_torch.ops import isokinetic as ops
         from mile_tpu_torch.train import trainer as trainer_mod
+        from mile_tpu_torch.utils.card import HBM_BYTES_PER_S
 
         by_key = {f'{j.study}/{j.name}': j for j in cat.build_jobs()}
         jobs = [dataclasses.replace(by_key[key], overrides={
@@ -3263,6 +3288,260 @@ Step by step: each card step is held against the same step taken on
             out[script] = {**values, 'wall_s': wall}
         self.timings['nuts_scripts'] = out
 
+    # ------------------------------------------------------------ bench
+    def bench(self):
+        """bench_torch.py's modes in this process at full width with the
+        step counts cut (BENCH_*): the headline at 12 and 48 chains, the
+        warm start at 12 and 48 members, airfoil and wide-FCN chain
+        scaling, the LeNet and wide-FCN bf16 points and the CPU
+        denominators, each with finite rates and energies and K1/K3
+        launched 3 and 1 times per MCLMC step; the chain-scaling lines read
+        back as plot_chain_scaling reads them. Then K1 and K3 against their
+        plain versions at BENCH_SHAPES, K3's noise across 1,536 chains, and
+        the fault drill with real worker processes."""
+        import bench_torch as bench
+
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        BENCH_RESULTS.mkdir(parents=True, exist_ok=True)
+        dev = self.dev.type
+        totals = [0, 0]
+        out = {}
+
+        def drive(key, steps, fn, *args, **kwargs):
+            """``fn(*args, **kwargs)`` with the launch counts set to 0 just
+            before and read just after, held to 3 and 1 per MCLMC step:
+            its result."""
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1, k3 = self._launches()
+            totals[0] += k1
+            totals[1] += k3
+            out[key] = {'wall_s': wall, 'launches': [k1, k3],
+                        'result': result}
+            self.check((k1, k3) == (3 * steps, steps),
+                       f'{key}: K1/K3 {k1}/{k3} (3 and 1 x {steps} MCLMC '
+                       f'steps), {wall:.1f} s')
+            return result
+
+        def finite(*values):
+            return all(v is not None and math.isfinite(v) and v > 0
+                       for v in values)
+
+        cut = BENCH_HEADLINE
+        steps = (tuner_steps(cut['warmup_steps'], False)
+                 + (1 + cut['n_repeats']) * cut['timed_steps'])
+        for n_chains in (bench.N_CHAINS, bench.BEST_PER_CHIP_CHAINS):
+            head = drive(f'headline_{n_chains}', steps,
+                         bench.measure_throughput, n_chains, device=dev,
+                         **cut)
+            self.check(finite(head['median'], head['min'], head['max'])
+                       and head['energy_change_finite'],
+                       f'headline at {n_chains} chains: median '
+                       f'{head["median"]:.1f} samples/s, IQR '
+                       f'{head["iqr"]:.1f}, min {head["min"]:.1f}, max '
+                       f'{head["max"]:.1f}; energies finite: '
+                       f'{head["energy_change_finite"]}')
+        for n_members in (bench.N_CHAINS, bench.BEST_PER_CHIP_CHAINS):
+            ws = drive(f'warmstart_{n_members}', 0, bench.measure_warmstart,
+                       n_members, BENCH_WS_EPOCHS, device=dev)
+            self.check(finite(ws['member_steps_per_sec'], ws['wall_s'])
+                       and ws['params_finite'],
+                       f'warm start of {n_members} members, '
+                       f'{BENCH_WS_EPOCHS} epochs: '
+                       f'{ws["member_steps_per_sec"]} member-steps/s, '
+                       f'{ws["wall_s"]} s, members finite')
+
+        for workload, (counts, n_steps) in (('airfoil', BENCH_AIRFOIL),
+                                            ('fcn', BENCH_FCN)):
+            lines = io.StringIO()
+            with contextlib.redirect_stdout(lines):
+                records = drive(f'chain_scaling_{workload}',
+                                2 * n_steps * len(counts), bench.chain_scaling,
+                                workload, counts, n_steps, device=dev)
+            path = BENCH_RESULTS / f'scale_{workload}.jsonl'
+            path.write_text(lines.getvalue())
+            print(textwrap.indent(lines.getvalue().strip(), '  '))
+            points, dim = self._chain_scaling_points(path)
+            self.check([n for n, _ in points] == counts
+                       and dim == (674 if workload == 'airfoil' else
+                                   AB_SHAPE[1])
+                       and all(finite(r['value'], r['per_chain'])
+                               and r['energy_change_finite']
+                               for r in records[:-1]),
+                       f'{workload} chain scaling: points {points} at dim '
+                       f'{dim} read back as plot_chain_scaling reads them, '
+                       f'rates and energies finite')
+        mfu_steps = 2 * BENCH_MFU_STEPS + 1    # warm, timed, counted
+        for key, fn in (('lenet_mfu', bench.lenet_mfu),
+                        ('fcn_mfu', bench.fcn_mfu)):
+            rec = drive(key, mfu_steps, fn, 'bfloat16',
+                        n_steps=BENCH_MFU_STEPS, device=dev)
+            print(f'  {json.dumps(rec)}')
+            dtypes = rec['matmul_input_dtypes']
+            self.check(finite(rec['value'], rec['model_tflops_per_sec'],
+                              rec['hw_tflops_per_sec'],
+                              rec['mfu_vs_bf16_peak'])
+                       and rec['mfu_vs_bf16_peak'] < 1.0
+                       and rec['energy_change_finite']
+                       and all(v == ['torch.bfloat16']
+                               for v in dtypes.values()),
+                       f'{key} bf16: {rec["value"]} steps/s, '
+                       f'{rec["model_tflops_per_sec"]} model TFLOP/s, '
+                       f'{rec["mfu_vs_bf16_peak"]} of the BF16 peak, '
+                       f'{rec["hw_tflops_per_sec"]} counted; bf16 inputs '
+                       f'to every convolution and product: {dtypes}')
+        reference = drive('reference_style_baseline', 0,
+                          bench.reference_style_baseline, BENCH_CPU_STEPS,
+                          device='cpu')
+        own = drive('own_path_baseline', 0, bench.own_path_baseline,
+                    BENCH_CPU_STEPS, device='cpu')
+        self.check(finite(reference['value'], own['value'])
+                   and reference['callbacks_received']
+                   == bench.N_CHAINS * BENCH_CPU_STEPS,
+                   f'CPU denominators: reference style '
+                   f'{reference["value"]} samples/s '
+                   f'({reference["callbacks_received"]} callbacks), own '
+                   f'path {own["value"]}')
+        # launched while driving the modes above, not by the checks below
+        self.path_launches['bench'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), totals))
+
+        gen = torch.Generator().manual_seed(43)
+        for n_chains, dim in BENCH_SHAPES:
+            self._k1_check(n_chains, dim)
+            self._k3_check(n_chains, dim, gen)
+        out['philox_1536'] = self._k3_many_chains(BENCH_SHAPES[3])
+        out['drill'] = self._bench_drills(bench)
+        self.timings['bench'] = out
+
+    def _chain_scaling_points(self, path: Path):
+        """(points, dim) of chain-scaling lines: through
+        ``plot_chain_scaling.load_points`` where matplotlib is installed
+        (it imports it), else by reading the same keys."""
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            records = [json.loads(line) for line in
+                       path.read_text().splitlines() if line.startswith('{')]
+            return (sorted((r['n_chains'], r['value']) for r in records
+                           if 'n_chains' in r),
+                    next(r['dim'] for r in records
+                         if r['metric'].endswith('_summary')))
+        return self._experiments('plot_chain_scaling').load_points(path)
+
+    def _k3_many_chains(self, shape) -> dict:
+        """K3 at ``shape`` (1,536 chains) with a device step counter,
+        launched PHILOX_CHAINS_STEPS times at eps/L = 5 (nu^2 dim = e^10 -
+        1, so u' is z/|z| to 0.7 %): the counter advances exactly once a
+        launch with its ticket bits back to 0, the first and last launch
+        equal the eager calls at their steps, and the largest correlation
+        between two chains' noise over all launches is at the level chance
+        gives (under 7 standard deviations of a correlation of that many
+        pairs)."""
+        torch = self.torch
+        from mile_tpu_torch.ops import isokinetic as ops
+
+        n_chains, dim = shape
+        gen = torch.Generator().manual_seed(47)
+        u = torch.randn(n_chains, dim, generator=gen)
+        u = (u / u.norm(dim=1, keepdim=True)).to(self.dev)
+        eps = torch.full((n_chains,), 5.0, device=self.dev)
+        L = torch.ones(n_chains, device=self.dev)
+        counter = ops.step_counter(0, self.dev)
+        n = PHILOX_CHAINS_STEPS
+        outs = torch.empty(n, n_chains, dim, device=self.dev)
+        for i in range(n):
+            outs[i] = ops.partial_refresh(u, eps, L, 23, counter)
+        step, ticket = ops.counter_step(counter), int(counter) & 0xFFFFFF
+        same = (torch.equal(outs[0], ops.partial_refresh(u, eps, L, 23, 0))
+                and torch.equal(outs[-1],
+                                ops.partial_refresh(u, eps, L, 23, n - 1)))
+        z = outs.permute(1, 0, 2).reshape(n_chains, -1)
+        z = z - z.mean(dim=1, keepdim=True)
+        z = z / z.norm(dim=1, keepdim=True)
+        corr = z @ z.T
+        corr.fill_diagonal_(0.0)
+        max_corr = float(corr.abs().max())
+        limit = 7.0 / math.sqrt(n * dim)
+        self.check(step == n and ticket == 0 and same and max_corr < limit,
+                   f'K3 {shape} with a device counter, {n} launches: '
+                   f'counter at step {step} (want {n}), ticket bits '
+                   f'{ticket}, first and last equal the eager calls: '
+                   f'{same}, largest |corr| between two chains\' noise '
+                   f'{max_corr:.4f} (< {limit:.4f}, 7 sd of chance)')
+        return {'max_abs_corr': max_corr, 'limit': limit, 'steps': step}
+
+    def _bench_drill(self, bench, fn: str, marker: Path) -> tuple:
+        """bench_torch.headline with its 12-chain measurement run by
+        ``fn`` of this script in real worker processes (each call counted
+        in ``marker``), every other measurement stubbed, no cool-off:
+        (exit code, stdout, stderr, workers started)."""
+        stand_in = {'median': 1.0, 'iqr': 0.0, 'min': 1.0, 'max': 1.0,
+                    'n_repeats': 1}
+        names = ('_measure_throughput', '_measure_warmstart',
+                 'reference_style_baseline', 'own_path_baseline',
+                 'BENCH_COOLOFF_S')
+        saved = {name: getattr(bench, name) for name in names}
+        marker.unlink(missing_ok=True)
+        bench._measure_throughput = lambda n, device: (
+            bench.run_worker(f'chip_smoke:{fn}', {'marker': str(marker),
+                                                  'device': device})
+            if n == bench.N_CHAINS else stand_in)
+        bench._measure_warmstart = lambda n, device: {
+            'member_steps_per_sec': 1.0, 'epochs_per_sec': 1.0,
+            'wall_s': 1.0}
+        bench.reference_style_baseline = bench.own_path_baseline = \
+            lambda *args, **kwargs: {'value': 1.0}
+        bench.BENCH_COOLOFF_S = 0.0
+        stdout, stderr = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(stdout), \
+                    contextlib.redirect_stderr(stderr):
+                rc = bench.headline(self.dev.type)
+        finally:
+            for name, value in saved.items():
+                setattr(bench, name, value)
+        return (rc, stdout.getvalue(), stderr.getvalue(),
+                int(marker.read_text()))
+
+    def _bench_drills(self, bench) -> dict:
+        """The headline's fault contract with real workers: a worker that
+        hits a real device-side assert on its first attempt is a fault,
+        the retry in a fresh worker succeeds, and exactly one JSON line
+        comes out; a worker out of memory is not retried, and the one
+        JSON line carries the error, exit 1."""
+        drills = {}
+        for name, fn in (('fault', 'bench_fault_drill'),
+                         ('oom', 'bench_oom_drill')):
+            t0 = time.perf_counter()
+            rc, stdout, stderr, workers = self._bench_drill(
+                bench, fn, BENCH_RESULTS / f'{name}_attempts')
+            lines = [json.loads(line) for line in stdout.splitlines()
+                     if line.startswith('{')]
+            retried = 'headline-12 attempt 1/' in stderr
+            drills[name] = {'rc': rc, 'workers': workers, 'lines': lines,
+                            'wall_s': time.perf_counter() - t0}
+            if name == 'fault':
+                ok = (rc == 0 and workers == 2 and retried
+                      and 'device-side assert' in stderr
+                      and len(lines) == 1 and lines[0]['value'] == 1.0)
+            else:
+                ok = (rc == 1 and workers == 1 and not retried
+                      and len(lines) == 1 and lines[0]['value'] is None
+                      and 'out of memory' in lines[0].get('error', ''))
+            if not ok:
+                print(textwrap.indent(stderr[-3000:], '    '))
+            self.check(ok, f'bench drill {name}: exit {rc}, {workers} '
+                           f'worker(s), retried: {retried}, '
+                           f'{len(lines)} JSON line(s): '
+                           f'{json.dumps(lines)[:200]}')
+        return drills
+
     # ---------------------------------------------------------- timings
     def _time_ms(self, fn, n: int = 500, reps: int = 5) -> float:
         torch = self.torch
@@ -3309,9 +3588,13 @@ Step by step: each card step is held against the same step taken on
         K2/K4 case)."""
         torch = self.torch
         from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.utils.card import HBM_BYTES_PER_S, PEAK_FLOPS
 
         b1 = 0.1931833275037836
         for n_chains, dim in TIMED_SHAPES:
+            # calls a timed window: a fifth past 2M elements, where a call
+            # takes 0.04-1.2 ms (the windows stay over 4 ms)
+            calls = 500 if n_chains * dim <= 2_000_000 else 100
             gen = torch.Generator().manual_seed(9)
             u = torch.randn(n_chains, dim, generator=gen)
             u = (u / u.norm(dim=1, keepdim=True)).to(self.dev)
@@ -3354,16 +3637,17 @@ Step by step: each card step is held against the same step taken on
             }
             for name, (kernel, plain, nbytes, nops) in cases.items():
                 t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-                t_ops = 1e3 * (nops or 0) / F32_OPS_PER_S
-                row = {'ms': self._time_ms(kernel),
-                       'graph_ms': self._graph_ms(kernel),
+                t_ops = 1e3 * (nops or 0) / PEAK_FLOPS['float32']
+                row = {'ms': self._time_ms(kernel, n=calls),
+                       'graph_ms': self._graph_ms(kernel, n=calls * 2 // 5),
                        'bound_ms': max(t_bytes, t_ops),
                        'bound_by': 'bytes' if t_bytes >= t_ops
                        else 'operations',
                        'bytes': nbytes, 'operations': nops}
-                if plain is not None:   # 0.3-0.9 ms a call: 5 x 100 calls
-                    row.update(plain_ms=self._time_ms(plain, n=100),
-                               plain_graph_ms=self._graph_ms(plain))
+                if plain is not None:   # 0.3-1.2 ms a call
+                    row.update(plain_ms=self._time_ms(plain, n=calls // 5),
+                               plain_graph_ms=self._graph_ms(
+                                   plain, n=calls * 2 // 5))
                 key = f'{name} ({n_chains}, {dim})'
                 self.timings[key] = row
                 print(f'  {key} {json.dumps(row)}')
@@ -3471,6 +3755,40 @@ def multiprocess_worker(rank: int, port: int) -> int:
     return 0
 
 
+def _count_call(marker: str) -> int:
+    """One more call counted in the file ``marker``: the count."""
+    path = Path(marker)
+    n = int(path.read_text()) + 1 if path.exists() else 1
+    path.write_text(str(n))
+    return n
+
+
+def bench_fault_drill(marker: str, device: str = 'cuda') -> dict:
+    """A measurement for bench_torch's workers (the fault drill): its first
+    call indexes out of range on the card, a device-side assert; later
+    calls return a stand-in headline result."""
+    import torch
+
+    n = _count_call(marker)
+    if n == 1:
+        values = torch.zeros(4, device=device)
+        index = torch.full((1,), 1 << 20, dtype=torch.long, device=device)
+        values[index].sum().item()
+        raise AssertionError('indexing out of range did not fault')
+    return {'median': 1.0, 'iqr': 0.0, 'min': 1.0, 'max': 1.0,
+            'n_repeats': 1, 'calls': n}
+
+
+def bench_oom_drill(marker: str, device: str = 'cuda') -> dict:
+    """A measurement for bench_torch's workers that asks the card for 1 PiB:
+    out of memory, which is no fault."""
+    import torch
+
+    _count_call(marker)
+    torch.empty(1 << 50, dtype=torch.uint8, device=device)
+    raise AssertionError('allocating 1 PiB did not fail')
+
+
 def catalog_fault_worker(mode: str, root: str) -> int:
     """The catalogue runner over ``root`` on FAULT_JOB, with its trainer
     replaced by one whose job indexes out of range on the card (a
@@ -3523,6 +3841,8 @@ def main() -> int:
            or m == 'mile_tpu' for m in sys.modules):
         fail('JAX or the JAX package was imported')
 
+    from mile_tpu_torch.utils.card import card_line
+
     t_start = time.perf_counter()
     smoke = Smoke(torch)
     card = card_line()
@@ -3573,6 +3893,9 @@ def main() -> int:
         smoke.phase('NUTS scripts: torch_time_warmup.py and '
                     'torch_profile_nuts.py on bikesharing',
                     smoke.nuts_scripts)
+        smoke.phase('bench: bench_torch.py\'s modes at full width, step '
+                    'counts cut; K1/K3 at the new shapes; the fault drill',
+                    smoke.bench)
         smoke.phase('timings at ' + ', '.join(
             f'({c}, {d})' for c, d in TIMED_SHAPES), smoke.kernel_timings)
     if any(m == 'jax' or m.startswith(('jax.', 'mile_tpu.'))

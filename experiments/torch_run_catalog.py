@@ -92,10 +92,11 @@ NUTS_DEPTH_CAP = {'training.sampler.warmup_max_num_doublings': 8,
                   'training.sampler.max_num_doublings': 8}
 
 # Error text of a sticky CUDA fault: CUDA's runtime errors as PyTorch
-# reports them, cuBLAS's and cuDNN's statuses, and the port's own kernel
-# launch error ("... failed to launch: CUDA error N (...)").
+# reports them (or by their enum names, as some libraries do), cuBLAS's and
+# cuDNN's statuses, and the port's own kernel launch error ("... failed to
+# launch: CUDA error N (...)").
 FAULT_MARKERS = ('CUDA error', 'device-side assert', 'illegal memory access',
-                 'unspecified launch failure', 'CUBLAS_STATUS_',
+                 'unspecified launch failure', 'cudaError', 'CUBLAS_STATUS_',
                  'CUDNN_STATUS_')
 
 EXIT_FAULT, EXIT_STOP = 70, 75

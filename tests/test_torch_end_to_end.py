@@ -234,16 +234,18 @@ def _imports(tree: ast.AST):
 
 
 def test_port_imports_no_jax_and_no_mile_tpu():
-    """Read every module of the port, chip_smoke.py and the port's
-    experiment scripts as source: no import of jax, flax, optax or mile_tpu
-    anywhere, at any depth."""
-    files = (sorted(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    """Read every module of the port, chip_smoke.py, bench_torch.py and
+    the port's experiment scripts as source: no import of jax, flax, optax
+    or mile_tpu anywhere, at any depth."""
+    files = (sorted(PACKAGE.rglob('*.py'))
+             + [ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py']
              + sorted((ROOT / 'experiments').glob('torch_*.py')))
     assert ROOT / 'experiments' / 'torch_symmetric_splitting.py' in files
     for script in ('torch_run_catalog.py', 'torch_dtype_ab_widefcn.py',
                    'torch_time_warmup.py', 'torch_profile_nuts.py'):
         assert ROOT / 'experiments' / script in files
     assert PACKAGE / 'mcmc' / 'split_hmc.py' in files
+    assert PACKAGE / 'utils' / 'card.py' in files
     for name in ('parallel/__init__.py', 'parallel/mesh.py',
                  'parallel/distributed.py', 'bayes/sharded.py',
                  'train/checkpoint_orbax.py'):
