@@ -94,6 +94,19 @@ starts 13 members over two entries against one device, and the
 multi-process phase warm starts the main path's members through
 ``BDETrainer`` over both ranks against the main path's.
 
+The study queue: the relaunch loop (``experiments/torch_catalog_queue.py``)
+over this script as its runner (``--catalog-fault-worker assert``): a real
+device-side assert relaunched after each 70 until the job's second strike
+makes the next launch skip it, the stage pooled, and a STOP file ending a
+later stage with 75 unpooled; then the dataset study's six r1 jobs, cut to
+``CATALOG_CUT``, through the loop (``--catalog-cut-worker``), pooled and
+compared by ``experiments/torch_compare_study.py``, with each job's K1/K3
+launches and the kernels against their plain versions at
+``DATASET_SHAPES``. A real preemption: ``BDETrainer`` with
+``checkpoint_sampling`` in a worker (``--preempt-worker ROOT``) killed with
+SIGKILL once a chunk is on disk and resumed here bit for bit; and one
+trainer run with ``profile: true`` whose trace names both kernels.
+
 The headline bench: ``bench_torch.py``'s modes in this process at full
 width with the step counts cut (``BENCH_*``): the headline at 12 and 48
 chains after a tuner run, the warm start at 12 and 48 members, airfoil
@@ -151,9 +164,14 @@ CATALOG_SHAPES = [(12, 1_282), (12, 786), (12, 5_426), (12, 738),
 # at 12 chains
 BENCH_SHAPES = [(48, 674), (192, 674), (768, 674), (1_536, 674),
                 (4, 592_386), (48, 592_386), (12, 61_706)]
+# the K1/K3 shapes of the dataset study's jobs (FCN [16, 16, 2] over 5, 8,
+# 8, 6, 12 and 9 features), in the catalogue's order of the six UCI sets:
+# airfoil, concrete, energy, yacht, bikesharing, protein
+DATASET_SHAPES = [(12, 402), (12, 450), (12, 450), (12, 418), (12, 514),
+                  (12, 466)]
 TIMED_SHAPES = [(12, 674), (1, 674), (12, 178), (10, 61_706),
                 (8, 65_248), (2, 300_000), (12, 592_386), *CATALOG_SHAPES,
-                *BENCH_SHAPES]
+                *BENCH_SHAPES, *sorted(set(DATASET_SHAPES))]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
@@ -408,6 +426,34 @@ FAULT_JOB = ['--only', 'datasize', '--name-filter',
              '^protein_mclmc_n40000_r1$']
 FAULT_HANG_TIMEOUT_S = 5
 FAULT_WORKER_TIMEOUT_S = 300
+# The study queue's relaunch loop (experiments/torch_catalog_queue.py) on
+# the card: a drill with the assert worker above as its runner (cool-off
+# 1 s), then a STOP file ending a later stage; then the dataset study's six
+# r1 jobs with their step counts cut to CATALOG_CUT (this script run again
+# with --catalog-cut-worker as the runner), pooled into QUEUE_AGGR (never
+# aggr_results_torch/) and compared with torch_compare_study.py
+QUEUE_DRILL_RESULTS = ROOT / 'results' / 'chip_smoke_queue_drill'
+QUEUE_RESULTS = RESULTS / 'queue'
+QUEUE_AGGR = RESULTS / 'queue_aggr'
+QUEUE_COOLOFF_S = 1
+QUEUE_STOP_STAGE = ('dataset', '^uci_mclmc_yacht_r1$')
+DATASET_SETS = ('airfoil', 'concrete', 'energy', 'yacht', 'bikesharing',
+                'protein')
+# A real preemption: this script run again with --preempt-worker ROOT runs
+# BDETrainer on the main path's config at CUT with checkpoint_sampling and
+# 600 sampling steps in chunks of PREEMPT_CHUNK_KEPT kept draws (the
+# trainer's 1 GiB chunks would hold the whole run in one), and is killed
+# with SIGKILL once a chunk is on disk; then one trainer run with profile:
+# true, its step counts cut to PROFILE_CUT
+PREEMPT_RESULTS = ROOT / 'results' / 'chip_smoke_preempt'
+PREEMPT_CUT = {**CUT, 'training.sampler.n_samples': 600,
+               'training.sampler.checkpoint_sampling': True}
+PREEMPT_CHUNK_KEPT = 5
+PREEMPT_TIMEOUT_S = 300
+PROFILE_RESULTS = ROOT / 'results' / 'chip_smoke_profile'
+PROFILE_CUT = {'training.warmstart.max_epochs': 1,
+               'training.sampler.warmup_steps': 100,
+               'training.sampler.n_samples': 50}
 # The wide-FCN dtype A/B (experiments/torch_dtype_ab_widefcn.py) at the
 # JAX script's width: FCN [512, 512, 512, 2] over 65,536 x 128 rows, 12
 # chains, dim 592,386 (K1 and K3 on the streaming-cluster route), its four
@@ -3135,6 +3181,317 @@ Step by step: each card step is held against the same step taken on
                 print(textwrap.indent(text[-3000:], '    '))
         self.timings['catalog_fault_s'] = seconds
 
+    def catalog_queue(self):
+        """The study queue's relaunch loop on the card. A drill: with the
+        assert worker as its runner, launches 1 and 2 exit 70 (a real
+        device-side assert, one strike each) and are relaunched after the
+        cool-off, launch 3 skips the twice-struck job and exits 0, and the
+        stage is pooled; then, with a STOP file in the root, that stage
+        exits 0 and is pooled again, and a later stage exits 75, is not
+        pooled, and ends the loop with 75. Then the dataset study's six r1
+        jobs, cut to CATALOG_CUT, through the loop with the real runner:
+        exit 0, one pooled row each, every compared metric finite in
+        ``torch_compare_study.py``'s table, K1 and K3 launched 3 and 1
+        times per MCLMC step of each job at DATASET_SHAPES; and K1 and K3
+        against their plain versions at those shapes."""
+        tq = self._experiments('torch_catalog_queue')
+        drill_s = self._queue_drill(tq)
+        self._queue_dataset(tq)
+        self.timings['catalog_queue']['drill_s'] = drill_s
+
+    def _queue_drill(self, tq) -> list:
+        """The loop's fault drill and STOP (``catalog_queue``'s first
+        half): the seconds of each of its two runs."""
+        import shutil
+
+        root, aggr = QUEUE_DRILL_RESULTS, QUEUE_DRILL_RESULTS / 'aggr'
+        shutil.rmtree(root, ignore_errors=True)
+        fault_stage = tq.Stage(FAULT_JOB[1], FAULT_JOB[3])
+        worker = [sys.executable, str(Path(__file__).resolve()),
+                  '--catalog-fault-worker', 'assert', str(root)]
+        drill = tq.Queue(root, aggr_dir=aggr, device=self.dev.type,
+                         cooloff_s=QUEUE_COOLOFF_S, runner=worker)
+        t0 = time.perf_counter()
+        rc = drill.run([fault_stage])
+        drill_s = time.perf_counter() - t0
+        (result,) = drill.results
+        strikes = (root / 'FAULTS.jsonl').read_text().splitlines() \
+            if (root / 'FAULTS.jsonl').exists() else []
+        log = drill.log_path.read_text()
+        self.check(rc == 0 and result.exit_codes == [70, 70, 0]
+                   and len(strikes) == 2 and 'CUDA error' in log
+                   and log.count('cooling off') == 2
+                   and result.pooled == aggr / f'aggr_{fault_stage.study}.csv'
+                   and result.pooled.exists(),
+                   f'the loop over the assert worker: runner exit codes '
+                   f'{result.exit_codes} (want 70 70 0: relaunched after '
+                   f'each fault, the job skipped at its second strike), '
+                   f'{len(strikes)} strikes, pooled into {result.pooled}, '
+                   f'{drill_s:.1f} s')
+        (root / 'STOP').touch()
+        stop = tq.Queue(root, aggr_dir=aggr, device=self.dev.type,
+                        cooloff_s=QUEUE_COOLOFF_S, runner=worker)
+        t0 = time.perf_counter()
+        rc = stop.run([fault_stage, tq.Stage(*QUEUE_STOP_STAGE)])
+        stop_s = time.perf_counter() - t0
+        codes = [r.exit_codes for r in stop.results]
+        pooled = [r.pooled is not None for r in stop.results]
+        self.check(rc == 75 and codes == [[0], [75]]
+                   and pooled == [True, False]
+                   and not (aggr / f'aggr_{QUEUE_STOP_STAGE[0]}.csv').exists()
+                   and not (root / 'STOP').exists(),
+                   f'a STOP file: the stages exit {codes} (want [0] and '
+                   f'[75]), pooled {pooled} (want the first only); the '
+                   f'loop exits {rc}, {stop_s:.1f} s')
+        if rc != 75 or result.exit_codes != [70, 70, 0]:
+            print(textwrap.indent(log[-3000:], '    '))
+        return [drill_s, stop_s]
+
+    def _queue_dataset(self, tq):
+        """The dataset study's r1 jobs, cut, through the loop, pooled and
+        compared; K1 and K3 at their shapes (``catalog_queue``'s second
+        half)."""
+        import dataclasses
+        import shutil
+
+        import numpy as np
+        import pandas as pd
+
+        cat = self._experiments('torch_run_catalog')
+        from mile_tpu_torch.utils.card import HBM_BYTES_PER_S
+
+        shutil.rmtree(QUEUE_RESULTS, ignore_errors=True)
+        shutil.rmtree(QUEUE_AGGR, ignore_errors=True)
+        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
+                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
+                         runner=[sys.executable,
+                                 str(Path(__file__).resolve()),
+                                 '--catalog-cut-worker'])
+        t0 = time.perf_counter()
+        rc = queue.run([tq.Stage('dataset', '_r1$')])
+        wall = time.perf_counter() - t0
+        (result,) = queue.results
+        records = {r['job']: r for r in map(json.loads, (
+            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())} \
+            if (QUEUE_RESULTS / 'queue.jsonl').exists() else {}
+        names = [f'uci_mclmc_{ds}_r1' for ds in DATASET_SETS]
+        self.check(rc == 0 and result.exit_codes == [0]
+                   and sorted(records) == sorted(names)
+                   and all(r['ok'] for r in records.values()),
+                   f'the dataset study\'s r1 jobs through the loop: runner '
+                   f'exit codes {result.exit_codes}, '
+                   f'{sum(r["ok"] for r in records.values())} of '
+                   f'{len(names)} ok in {wall:.1f} s (timeout '
+                   f'{tq.JOB_TIMEOUT_S["dataset"]:g} s a job)')
+        if result.exit_codes != [0]:
+            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
+        by_key = {j.name: j for j in cat.build_jobs()}
+        per_job, shapes = {}, []
+        for name, shape in zip(names, DATASET_SHAPES):
+            job = dataclasses.replace(by_key[name], overrides={
+                **by_key[name].overrides, **CATALOG_CUT})
+            scfg = job.config(QUEUE_RESULTS).training.sampler
+            exp = job.exp_dir(QUEUE_RESULTS)
+            dim = sum(a.size for a in np.load(
+                exp / 'warmstart' / 'params_0.npz').values())
+            shapes.append((scfg.n_chains, dim))
+            steps = mclmc_steps(scfg)
+            launches = records[name]['launches']
+            k1_bytes, k3_bytes = kernel_bytes(scfg.n_chains, dim)
+            per_job[name] = {
+                'shape': [scfg.n_chains, dim], 'steps': steps,
+                'wall_s': records[name]['wall_s'], 'launches': launches,
+                'bound_us': {'isokinetic_momentum':
+                             1e6 * k1_bytes / HBM_BYTES_PER_S,
+                             'partial_refresh':
+                             1e6 * k3_bytes / HBM_BYTES_PER_S}}
+            self.check(launches == {'isokinetic_momentum': 3 * steps,
+                                    'partial_refresh': steps}
+                       and (scfg.n_chains, dim) == shape,
+                       f'{name}: ({scfg.n_chains}, {dim}) (want {shape}), '
+                       f'{steps} steps, K1/K3 '
+                       f'{launches["isokinetic_momentum"]}/'
+                       f'{launches["partial_refresh"]} (3 and 1 a step), '
+                       f'{records[name]["wall_s"]} s')
+        self.path_launches['catalog_queue'] = {
+            k: sum(r['launches'][k] for r in records.values())
+            for k in ('isokinetic_momentum', 'partial_refresh')}
+
+        pooled = pd.read_csv(QUEUE_AGGR / 'aggr_dataset.csv')
+        for name in names:
+            row = pooled[pooled['experiment_name'] == name]
+            if len(row):
+                sampling_s = float(row['time.sampling'].iloc[0])
+                per_job[name]['time_sampling_s'] = sampling_s
+                per_job[name]['time_warmstart_s'] = float(
+                    row['time.warmstart'].iloc[0])
+                per_job[name]['chain_steps_per_s'] = (
+                    per_job[name]['shape'][0] * per_job[name]['steps']
+                    / sampling_s)
+        self.check(sorted(pooled['experiment_name']) == sorted(names),
+                   f'pooled into {QUEUE_AGGR / "aggr_dataset.csv"}: a row '
+                   f'for each set ({len(pooled)} rows)')
+        compared = RESULTS / 'queue_compare.csv'
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / 'experiments' /
+                                 'torch_compare_study.py'), 'dataset',
+             '--port', str(QUEUE_AGGR / 'aggr_dataset.csv'),
+             '--out', str(compared)],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        table = pd.read_csv(compared) if compared.exists() else None
+        self.check(proc.returncode == 0 and table is not None
+                   and len(table) == 6 * len(names)
+                   and bool(np.isfinite(table['port']).all())
+                   and sorted(set(table['group'])) == sorted(
+                       f'uci_mclmc_{ds}' for ds in DATASET_SETS),
+                   f'torch_compare_study.py: exit {proc.returncode}, '
+                   f'{0 if table is None else len(table)} comparisons, '
+                   f'every compared metric finite (at cut step counts the '
+                   f'verdicts mean nothing: '
+                   f'{proc.stdout.strip().splitlines()[-1:]})')
+        if proc.returncode != 0:
+            print(textwrap.indent(proc.stderr[-3000:], '    '))
+
+        # (c) K1 and K3 against their plain versions at the jobs' shapes
+        gen = self.torch.Generator().manual_seed(11)
+        for n_chains, dim in sorted(set(shapes)):
+            self._k1_check(n_chains, dim)
+            self._k3_check(n_chains, dim, gen)
+        for name, row in per_job.items():
+            print(f'  {name}: {row["wall_s"]} s, sampling '
+                  f'{row.get("time_sampling_s", float("nan")):.2f} s, '
+                  f'{row.get("chain_steps_per_s", float("nan")):.0f} '
+                  f'chain-steps/s')
+        self.timings['catalog_queue'] = {'wall_s': wall, 'jobs': per_job}
+
+    def preemption(self):
+        """A real preemption and ``profile: true`` on the card. A worker
+        process (this script with ``--preempt-worker ROOT``) runs
+        BDETrainer on the main path's config with checkpoint_sampling and
+        is killed with SIGKILL once ``sampler_ckpt/`` holds a chunk; the
+        run is resumed here through ``run_mclmc(checkpoint_dir=)`` from the
+        worker's warm start and checkpoint, and its draws, ΔE statistics
+        and tuned ε and L equal an uninterrupted run's bit for bit, with K1
+        and K3 launched 3 and 1 times per step it had left. Then one
+        trainer run with ``profile: true``: its ``profile/trace.json``
+        parses and names both kernels."""
+        import shutil
+        import signal
+
+        import numpy as np
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train import sampling
+        from mile_tpu_torch.train.checkpoint import load_params_batch
+        from mile_tpu_torch.train.trainer import BDETrainer
+        from mile_tpu_torch.utils.keys import experiment_keys
+
+        shutil.rmtree(PREEMPT_RESULTS, ignore_errors=True)
+        PREEMPT_RESULTS.mkdir(parents=True)
+        config = preempt_config(PREEMPT_RESULTS)
+        exp, scfg = config.experiment_dir, config.training.sampler
+        ckpt_dir = exp / 'sampler_ckpt'
+        t0 = time.perf_counter()
+        with open(PREEMPT_RESULTS / 'worker.log', 'w') as log:
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 '--preempt-worker', str(PREEMPT_RESULTS),
+                 self.dev.type],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+            while (proc.poll() is None and not (ckpt_dir /
+                                                'chunk_000000.npz').exists()
+                   and time.perf_counter() - t0 < PREEMPT_TIMEOUT_S):
+                time.sleep(0.002)
+            alive = proc.poll() is None
+            proc.kill()
+            rc = proc.wait(timeout=60)
+        killed_s = time.perf_counter() - t0
+        chunks = sorted(p.name for p in ckpt_dir.glob('chunk_*.npz'))
+        # the count the snapshot holds (the meta file's may be older: the
+        # kill can land between the two)
+        snapshot = ckpt_dir / 'sampler_state.npz'
+        done = None
+        if snapshot.exists():
+            with np.load(snapshot) as d:
+                done = int(d['meta_kept_done'])
+        self.check(alive and rc == -signal.SIGKILL and len(chunks) >= 1
+                   and done is not None,
+                   f'the worker killed with SIGKILL after {killed_s:.1f} s '
+                   f'(exit {rc}) with {len(chunks)} chunk(s) on disk, the '
+                   f'snapshot at {done} kept draws')
+        if not (alive and chunks):
+            print(textwrap.indent(
+                (PREEMPT_RESULTS / 'worker.log').read_text()[-3000:], '    '))
+            return
+
+        bayes, x, y = posterior_of(config, self.dev)
+        vg = bayes.logdensity_and_grad_fn(x, y)
+        members = torch.from_numpy(load_params_batch(
+            exp / 'warmstart', range(scfg.n_chains))).to(self.dev)
+        n_chains, dim = members.shape
+        chunk_bytes = PREEMPT_CHUNK_KEPT * n_chains * dim * 4
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = sampling.run_mclmc(
+            vg, scfg, experiment_keys(config.rng).sample, members,
+            max_chunk_bytes=chunk_bytes, checkpoint_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        k1, k3 = self._launches()
+        full = sampling.run_mclmc(
+            vg, scfg, experiment_keys(config.rng).sample, members,
+            max_chunk_bytes=chunk_bytes)
+        torch.cuda.synchronize()
+        self.path_launches['preemption'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), self._launches()))
+        thin = scfg.n_thinning
+        left = (math.ceil(scfg.n_samples / thin) - done) * thin
+        same = self._equal(resumed, full, [
+            ('info', 'energy_change'), ('info', 'energy_change_sq'),
+            ('tuned', 'step_size'), ('tuned', 'L')])
+        self.check(all(same.values()) and (k1, k3) == (3 * left, left)
+                   and resumed.samples.shape == full.samples.shape
+                   and not ckpt_dir.exists(),
+                   f'resumed from the killed worker\'s checkpoint at '
+                   f'({n_chains}, {dim}) in {resume_s:.1f} s: bitwise equal '
+                   f'to an uninterrupted run {same}; K1 {k1} (3 x {left} '
+                   f'steps left), K3 {k3}; checkpoint removed')
+
+        shutil.rmtree(PROFILE_RESULTS, ignore_errors=True)
+        (profile_cfg,) = Config.from_file(CONFIG)
+        profile_cfg = profile_cfg.replace(
+            saving_dir=str(PROFILE_RESULTS), experiment_name='profile',
+            profile=True, **PROFILE_CUT)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = BDETrainer(profile_cfg, device=self.dev.type)
+        trainer.train(report=False)
+        torch.cuda.synchronize()
+        profile_s = time.perf_counter() - t0
+        launches = self._launches()
+        self.path_launches['profile'] = dict(zip(
+            ('isokinetic_momentum', 'partial_refresh'), launches))
+        trace_path = trainer.exp_dir / 'profile' / 'trace.json'
+        text = trace_path.read_text() if trace_path.exists() else '{}'
+        events = json.loads(text).get('traceEvents', [])
+        kernels = [e.get('name', '') for e in events
+                   if e.get('cat') == 'kernel']
+        counts = tuple(sum(name in k for k in kernels)
+                       for name in ('isokinetic_momentum', 'partial_refresh'))
+        self.check(all(counts) and all(launches),
+                   f'profile: true: profile/trace.json '
+                   f'({len(text) / 1e6:.1f} MB) parses, {len(events)} '
+                   f'events, {len(kernels)} kernels, K1 {counts[0]} '
+                   f'and K3 {counts[1]} of them (the wrappers counted '
+                   f'{launches[0]} and {launches[1]}), {profile_s:.1f} s')
+        self.timings['preemption'] = {
+            'killed_after_s': killed_s, 'chunks_on_disk': len(chunks),
+            'kept_done': done, 'resume_s': resume_s,
+            'profile_s': profile_s, 'profile_kernel_events': counts,
+            'profile_launches': launches}
+
     def dtype_ab(self):
         """The dtype A/B at W = 512 (AB_SHAPE, the streaming route), its
         four arms in subprocesses: each ok, K1/K3 launched 3 and 1 times
@@ -3653,18 +4010,13 @@ Step by step: each card step is held against the same step taken on
                 print(f'  {key} {json.dumps(row)}')
 
 
-def airfoil_posterior(device):
-    """The main path's posterior (airfoil, FCN [16, 16, 16, 2], the config's
-    data split) on ``device``, built as the trainer builds it, and the
-    sampler config at CUT and MESH_RUN_CUT: (bayes, x, y, sampler config).
-    """
+def posterior_of(config, device):
+    """(bayes, x, y): the posterior of ``config`` and its training split on
+    ``device``, built as the trainer builds them."""
     from mile_tpu_torch.bayes import BayesianModel
-    from mile_tpu_torch.config import Config
     from mile_tpu_torch.data import build_loader
     from mile_tpu_torch.utils.keys import experiment_keys
 
-    (config,) = Config.from_file(CONFIG)
-    config = config.replace(**{**CUT, **MESH_RUN_CUT})
     scfg = config.training.sampler
     loader = build_loader(config.data, experiment_keys(config.rng).loader,
                           device, target_len=config.data.target_len,
@@ -3674,7 +4026,29 @@ def airfoil_posterior(device):
         config.data.task, likelihood_chunk_size=scfg.likelihood_chunk_size,
         compute_dtype=scfg.compute_dtype)
     x, y = loader.arrays('train')
-    return bayes, x, y, scfg
+    return bayes, x, y
+
+
+def airfoil_posterior(device):
+    """The main path's posterior (airfoil, FCN [16, 16, 16, 2], the config's
+    data split) on ``device``, built as the trainer builds it, and the
+    sampler config at CUT and MESH_RUN_CUT: (bayes, x, y, sampler config).
+    """
+    from mile_tpu_torch.config import Config
+
+    (config,) = Config.from_file(CONFIG)
+    config = config.replace(**{**CUT, **MESH_RUN_CUT})
+    return (*posterior_of(config, device), config.training.sampler)
+
+
+def preempt_config(root: Path):
+    """The main path's config at PREEMPT_CUT, its experiment ``preempt``
+    under ``root``."""
+    from mile_tpu_torch.config import Config
+
+    (config,) = Config.from_file(CONFIG)
+    return config.replace(saving_dir=str(root), experiment_name='preempt',
+                          **PREEMPT_CUT)
 
 
 def multiprocess_run(bayes, x, y, scfg, members, mesh):
@@ -3789,7 +4163,7 @@ def bench_oom_drill(marker: str, device: str = 'cuda') -> dict:
     raise AssertionError('allocating 1 PiB did not fail')
 
 
-def catalog_fault_worker(mode: str, root: str) -> int:
+def catalog_fault_worker(mode: str, root: str, extra=()) -> int:
     """The catalogue runner over ``root`` on FAULT_JOB, with its trainer
     replaced by one whose job indexes out of range on the card (a
     device-side assert; ``mode`` 'assert') or sleeps past the job timeout
@@ -3818,8 +4192,48 @@ def catalog_fault_worker(mode: str, root: str) -> int:
     trainer_mod.BDETrainer = Faulting
     timeout = FAULT_HANG_TIMEOUT_S if mode == 'hang' else \
         FAULT_WORKER_TIMEOUT_S
+    # a relaunch loop appends its own --root, --only, --name-filter,
+    # --job-timeout and --device, which take the place of these
     return cat.main(['--root', root, *FAULT_JOB, '--job-timeout',
-                     str(timeout)])
+                     str(timeout), *extra])
+
+
+def catalog_cut_worker(argv: list) -> int:
+    """The catalogue runner with ``argv``, every job's step counts cut to
+    CATALOG_CUT (the runner of the catalog_queue phase's dataset jobs).
+    Returns the runner's exit code."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / 'experiments'))
+    import torch_run_catalog as cat
+
+    every_job = cat.build_jobs
+    cat.build_jobs = lambda: [
+        dataclasses.replace(j, overrides={**j.overrides, **CATALOG_CUT})
+        for j in every_job()]
+    return cat.main(argv)
+
+
+def preempt_worker(root: str, device: str = 'cuda') -> int:
+    """BDETrainer on :func:`preempt_config` under ``root`` on ``device``,
+    its sampling in chunks of PREEMPT_CHUNK_KEPT kept draws, until the
+    parent kills it. Returns 0 if it was not killed."""
+    sys.path.insert(0, str(ROOT))
+    from mile_tpu_torch.train import sampling
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    config = preempt_config(Path(root))
+    run_mclmc = sampling.run_mclmc
+
+    def chunked(vg, cfg, generator, positions, **kwargs):
+        kwargs['max_chunk_bytes'] = PREEMPT_CHUNK_KEPT * positions.numel() * 4
+        return run_mclmc(vg, cfg, generator, positions, **kwargs)
+
+    sampling.run_mclmc = chunked
+    BDETrainer(config, device=device).train(report=False)
+    print('preempt worker: the run ended before it was killed', flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3887,6 +4301,13 @@ def main() -> int:
                     f'{len(CATALOG_JOBS)} jobs at full width', smoke.catalog)
         smoke.phase('catalogue faults: a device-side assert in worker '
                     'processes, strikes, skip, hang', smoke.catalog_fault)
+        smoke.phase('study queue: torch_catalog_queue.py relaunching a '
+                    'device-side assert, STOP; the dataset study\'s six r1 '
+                    'jobs cut, pooled and compared; K1/K3 at their shapes',
+                    smoke.catalog_queue)
+        smoke.phase('preemption: BDETrainer with checkpoint_sampling killed '
+                    'with SIGKILL and resumed bit for bit; profile: true',
+                    smoke.preemption)
         smoke.phase('dtype A/B: torch_dtype_ab_widefcn.py, FCN [512 x 3, 2],'
                     ' 12 chains, dim 592,386, the streaming route',
                     smoke.dtype_ab)
@@ -3923,8 +4344,9 @@ def main() -> int:
             # the airfoil, partition, image and text paths, the MCLMC
             # resume phase, the streaming trainer, the mesh, the
             # multi-process phase's one-process run, the orbax resume, the
-            # catalogue's MCLMC jobs and the dtype A/B's arms (counted in
-            # their processes)
+            # catalogue's MCLMC jobs, the dtype A/B's arms and the study
+            # queue's dataset jobs (both counted in their processes), the
+            # bench, the resumed preemption and the profiled trainer
             'launches': smoke.launches.get(name, 0) + sum(
                 path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,
@@ -3947,5 +4369,10 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--multiprocess-worker']:
         sys.exit(multiprocess_worker(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] == ['--catalog-fault-worker']:
-        sys.exit(catalog_fault_worker(sys.argv[2], sys.argv[3]))
+        sys.exit(catalog_fault_worker(sys.argv[2], sys.argv[3],
+                                      sys.argv[4:]))
+    if sys.argv[1:2] == ['--catalog-cut-worker']:
+        sys.exit(catalog_cut_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ['--preempt-worker']:
+        sys.exit(preempt_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -12,8 +12,8 @@ boundary: after every drained chunk the directory atomically receives
 so that a run that was stopped resumes where it stopped, skips the warmup,
 and gives draws bit-identical to an uninterrupted run.
 
-The file names and formats are the JAX package's, with one difference:
-where the JAX snapshot stores the chains' threefry keys (``key_data``),
+The file names and formats are the JAX package's, with two differences.
+Where the JAX snapshot stores the chains' threefry keys (``key_data``),
 the port stores its own random state as ``rng_*`` entries:
 
 - MCLMC: the refresh kernel's run seed and its step counter's step
@@ -22,6 +22,15 @@ the port stores its own random state as ``rng_*`` entries:
 - NUTS and HMC: the sampling ``Draws`` generator's ``get_state()``
   (``rng_generator_state``), put back with ``set_state`` on a generator of
   the chains' device.
+
+And the snapshot holds its own kept-draw count (``meta_kept_done``), which
+is what a resume reads: the snapshot and ``sampler_meta.json`` are two
+files, each replaced atomically but not both at once, so a run killed
+between the two (a SIGKILL can land there) would otherwise resume the new
+state at the old count. A resume loads only the chunks that count covers:
+a run killed between a chunk and the snapshot after it leaves one chunk
+more. (The JAX package reads the count from the meta file and loads every
+chunk file, so a kill in either window gives its resumed run wrong draws.)
 
 With ``fmt='orbax'`` the snapshot (state, random state and tuned values)
 goes through :mod:`mile_tpu_torch.train.checkpoint_orbax` into
@@ -89,9 +98,10 @@ class SamplerCheckpoint:
     # ------------------------------------------------------------- save
     def save(self, state_leaves: dict, rng: dict, tuned: dict,
              kept_done: int) -> None:
-        """Atomically overwrite the snapshot, then the meta file that
-        points at it."""
-        parts = {'state': state_leaves, 'rng': rng, 'tuned': tuned}
+        """Atomically overwrite the snapshot, with its kept-draw count,
+        then the meta file."""
+        parts = {'state': state_leaves, 'rng': rng, 'tuned': tuned,
+                 'meta': {'kept_done': np.int64(kept_done)}}
         if self.fmt == 'orbax':
             if self.writer:
                 from mile_tpu_torch.train.checkpoint_orbax import save_ensemble
@@ -145,23 +155,30 @@ class SamplerCheckpoint:
             tree = load_ensemble(snap_path, collective=False)
             parts = {part: {k: v.numpy()
                             for k, v in tree.get(part, {}).items()}
-                     for part in ('state', 'rng', 'tuned')}
+                     for part in ('state', 'rng', 'tuned', 'meta')}
         else:
             with np.load(snap_path) as d:
                 parts = {part: {k[len(part) + 1:]: d[k] for k in d.files
                                 if k.startswith(part + '_')}
-                         for part in ('state', 'rng', 'tuned')}
+                         for part in ('state', 'rng', 'tuned', 'meta')}
+        # the snapshot's own count (a snapshot written before it held one:
+        # the meta file's)
+        kept_done = int(parts['meta'].get('kept_done', meta['kept_done']))
         logger.info('resuming sampler from %s at %d kept draws',
-                    self.dir, meta['kept_done'])
-        return (parts['state'], parts['rng'], parts['tuned'],
-                int(meta['kept_done']))
+                    self.dir, kept_done)
+        return parts['state'], parts['rng'], parts['tuned'], kept_done
 
-    def load_chunks(self) -> tuple[list, list]:
-        """The drained chunks of the stopped run, in order: positions, and
-        the per-draw statistics as :meth:`save_chunk` received them."""
+    def load_chunks(self, n_chunks: int) -> tuple[list, list]:
+        """The first ``n_chunks`` drained chunks of the stopped run, in
+        order: positions, and the per-draw statistics as :meth:`save_chunk`
+        received them. A chunk is written before the snapshot that points
+        past it, so a run killed between the two leaves one chunk more
+        than its snapshot counts; that chunk is run again, not loaded (the
+        JAX package loads every chunk file, and its resumed run would hold
+        that chunk twice)."""
         host_chunks, aux_chunks = [], []
-        for path in sorted(self.dir.glob('chunk_*.npz')):
-            with np.load(path) as d:
+        for i in range(n_chunks):
+            with np.load(self.dir / f'chunk_{i:06d}.npz') as d:
                 host_chunks.append(d['positions'])
                 aux_chunks.append({k[len('aux_'):]: d[k] for k in d.files
                                    if k.startswith('aux_')})

@@ -296,7 +296,8 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
         sqrt_diag_cov=sqrt_diag_cov)._asdict().items()}
     drain = Drain(sample_sink, checkpoint, tuned, mesh)
     if resumed is not None:   # the chunks the stopped run drained
-        drain.host_chunks, drain.info_chunks = checkpoint.load_chunks()
+        drain.host_chunks, drain.info_chunks = checkpoint.load_chunks(
+            kept_done // chunk_kept)
     elif checkpoint is not None:
         drain.snapshot(state, kernel.random_state(), 0)
 

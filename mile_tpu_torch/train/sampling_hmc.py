@@ -179,7 +179,8 @@ def _run_hmc_family(logdensity_and_grad, cfg, generator, init_positions,
     random_state = lambda: {'generator_state': draws_generator.get_state()}
     drain = Drain(sample_sink, checkpoint, tuned, mesh)
     if resumed is not None:   # the chunks the stopped run drained
-        drain.host_chunks, drain.info_chunks = checkpoint.load_chunks()
+        drain.host_chunks, drain.info_chunks = checkpoint.load_chunks(
+            kept_done // chunk_kept)
     elif checkpoint is not None:
         drain.snapshot(state, random_state(), 0)
     logger.info('> starting %s sampling: %d kept draws x %d chains...',

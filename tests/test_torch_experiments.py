@@ -1,6 +1,7 @@
 """The port's experiment scripts on the CPU: the dtype A/B's wide FCN
-against the JAX package's, one A/B arm end to end, and the NUTS timing
-scripts at a few steps.
+against the JAX package's, one A/B arm end to end, the A/B's handling of
+its children (a failed arm runs again; a child must print exactly one
+record), and the NUTS timing scripts at a few steps.
 
 The wide FCN's log-posterior and gradient (W = 16 on 256 of the A/B's
 synthetic rows; the JAX script builds the same posterior) are held
@@ -11,12 +12,14 @@ finite.
 """
 import json
 import re
+import subprocess
 import sys
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from _torch_parity import one_torch_thread  # noqa: F401
 
@@ -93,6 +96,69 @@ def test_an_arm_end_to_end(tmp_path, monkeypatch, capsys):
     # a recorded arm is skipped on the next launch
     assert ab.main(['--device', 'cpu', '--out', str(out)]) == 0
     assert 'already recorded, skip' in capsys.readouterr().out
+
+
+def _fake_children(monkeypatch, outputs):
+    """Replace the A/B's child processes: ``outputs[tag]`` is the (exit
+    code, stdout) of arm ``tag``'s child. Returns the tags launched."""
+    launched = []
+
+    def run(cmd, **kwargs):
+        tag = cmd[cmd.index('--arm') + 1]
+        launched.append(tag)
+        rc, out = outputs[tag]
+        return subprocess.CompletedProcess(cmd, rc, out, 'child stderr')
+
+    monkeypatch.setattr(ab.subprocess, 'run', run)
+    monkeypatch.setattr(ab, 'ARMS', {t: ab.ARMS[t] for t in outputs})
+    return launched
+
+
+def _ok(tag):
+    return 0, f'progress line\n{json.dumps({"arm": f"{tag}_w512"})}\n'
+
+
+@pytest.mark.parametrize('verdict', ['timeout', 'error', 'kernel_fault'])
+def test_a_failed_arm_runs_again(verdict, tmp_path, monkeypatch):
+    """Only records without a ``verdict`` count as done: an arm whose last
+    launch left a failure record runs on the next launch; an arm with a
+    result is skipped."""
+    out = tmp_path / 'ab.jsonl'
+    out.write_text(json.dumps({'arm': 'f32def_w512', 'steps_per_sec': 1.0})
+                   + '\n' + json.dumps({'arm': 'f32tune_w512', 'verdict':
+                                        verdict, 'rc': -1}) + '\n')
+    launched = _fake_children(monkeypatch, {'f32def': _ok('f32def'),
+                                            'f32tune': _ok('f32tune')})
+    assert ab.main(['--device', 'cpu', '--out', str(out)]) == 0
+    assert launched == ['f32tune']
+    records = [json.loads(line) for line in out.read_text().splitlines()]
+    assert records[-1] == {'arm': 'f32tune_w512'}
+    assert ab.done_arms(out) == {'f32def_w512', 'f32tune_w512'}
+
+
+@pytest.mark.parametrize('stdout', [
+    '',                                       # no line at all
+    'no record, only a log line\n',
+    '{"arm": "f32def_w512"}\n{"arm": "f32def_w512"}\n',   # two
+    '{"logged": "by a library"}\n',           # a JSON line without arm
+    '{not json\n',
+])
+def test_a_child_without_one_record_is_a_failure(stdout, tmp_path,
+                                                 monkeypatch):
+    """A child that exits 0 must print exactly one JSON line with ``arm``
+    (``bench_torch.run_worker``'s rule): anything else is a failure record
+    with the exit code and the output's tail, and the next arm runs."""
+    out = tmp_path / 'ab.jsonl'
+    launched = _fake_children(monkeypatch, {'f32def': (0, stdout),
+                                            'f32tune': _ok('f32tune')})
+    assert ab.main(['--device', 'cpu', '--out', str(out)]) == 0
+    assert launched == ['f32def', 'f32tune']
+    failed, ok = [json.loads(line) for line in out.read_text().splitlines()]
+    assert failed['arm'] == 'f32def_w512' and failed['verdict'] == 'error'
+    assert failed['rc'] == 0 and failed['output'] == stdout
+    assert 'child stderr' in failed['error']
+    assert ok == {'arm': 'f32tune_w512'}
+    assert ab.done_arms(out) == {'f32tune_w512'}
 
 
 def test_arm_peaks():

@@ -3,7 +3,9 @@ against the JAX package's contract and files.
 
 A resumed MCLMC, NUTS or HMC run gives the uninterrupted run's draws,
 per-draw statistics and tuned parameters bit for bit, without the tuner,
-with the snapshot in the npz or the orbax format;
+with the snapshot in the npz or the orbax format, and when the run was
+killed between a chunk and the snapshot that counts it or between the
+snapshot and the meta file;
 the checkpoint directory holds the JAX package's files and npz keys (the
 random state apart: the port stores its own); the per-draw writer's files
 equal the JAX writer's; each package's trainer reuses the other's
@@ -118,6 +120,68 @@ def test_resume_reproduces_uninterrupted_run(tmp_path, sampler):
     assert_same_run(resumed, full)
     # a resumed run returns what it restored, as the JAX runtimes do
     assert set(resumed.tuned) == tuned_keys(sampler)
+    assert not ckpt_dir.exists()
+
+
+@pytest.mark.parametrize('sampler', SAMPLERS)
+def test_a_kill_between_a_chunk_and_its_snapshot(tmp_path, sampler,
+                                                 monkeypatch):
+    """A run killed after chunk 1 is on disk but before the snapshot that
+    points past it (a SIGKILL can land there): the resumed run runs chunk 1
+    again instead of loading it, and equals the uninterrupted run bit for
+    bit. (The JAX package's resume loads every chunk file and would hold
+    chunk 1 twice.)"""
+    full = run(sampler, 5)
+    ckpt_dir = tmp_path / 'c'
+    save = SamplerCheckpoint.save
+    calls = []
+
+    def killed_at_third_snapshot(self, *args, **kwargs):
+        calls.append(1)
+        if len(calls) == 3:   # post-warmup, after chunk 0, after chunk 1
+            raise Stop('between chunk 1 and its snapshot')
+        return save(self, *args, **kwargs)
+
+    monkeypatch.setattr(SamplerCheckpoint, 'save', killed_at_third_snapshot)
+    with pytest.raises(Stop):
+        run(sampler, 5, checkpoint_dir=ckpt_dir)
+    monkeypatch.setattr(SamplerCheckpoint, 'save', save)
+    assert sorted(p.name for p in ckpt_dir.glob('chunk_*.npz')) == [
+        'chunk_000000.npz', 'chunk_000001.npz']
+    meta = json.loads((ckpt_dir / 'sampler_meta.json').read_text())
+    assert meta['kept_done'] == 8
+    assert_same_run(run(sampler, 5, checkpoint_dir=ckpt_dir), full)
+    assert not ckpt_dir.exists()
+
+
+@pytest.mark.parametrize('sampler', SAMPLERS)
+def test_a_kill_between_the_snapshot_and_the_meta_file(tmp_path, sampler,
+                                                       monkeypatch):
+    """A run killed after the snapshot after chunk 0 is written but before
+    ``sampler_meta.json`` is (the two files are replaced one after the
+    other): the resume takes the snapshot's own count, not the meta file's
+    older one, and equals the uninterrupted run bit for bit."""
+    full = run(sampler, 5)
+    ckpt_dir = tmp_path / 'c'
+    write = SamplerCheckpoint._write
+    metas = []
+
+    def killed_before_the_second_meta(self, name, fn):
+        if name == 'sampler_meta.json':
+            metas.append(1)
+            if len(metas) == 2:   # post-warmup, then after chunk 0
+                raise Stop('between the snapshot and the meta file')
+        return write(self, name, fn)
+
+    monkeypatch.setattr(SamplerCheckpoint, '_write',
+                        killed_before_the_second_meta)
+    with pytest.raises(Stop):
+        run(sampler, 5, checkpoint_dir=ckpt_dir)
+    monkeypatch.setattr(SamplerCheckpoint, '_write', write)
+    meta = json.loads((ckpt_dir / 'sampler_meta.json').read_text())
+    with np.load(ckpt_dir / 'sampler_state.npz') as snapshot:
+        assert (meta['kept_done'], int(snapshot['meta_kept_done'])) == (0, 8)
+    assert_same_run(run(sampler, 5, checkpoint_dir=ckpt_dir), full)
     assert not ckpt_dir.exists()
 
 
@@ -237,7 +301,7 @@ def _npz_keys(path):
 def test_checkpoint_files_match_jax(tmp_path, sampler):
     """Each package's run, stopped after chunk 2, leaves the same files
     with the same npz keys and the same fingerprint keys, apart from the
-    random state."""
+    random state and the snapshot's own kept-draw count."""
     from mile_tpu.config.training import Sampler as JaxSampler
     from mile_tpu.config.training import SamplerConfig as JaxSamplerConfig
     from mile_tpu.train.sampling import run_sampler as jax_run_sampler
@@ -268,7 +332,10 @@ def test_checkpoint_files_match_jax(tmp_path, sampler):
     port_keys = _npz_keys(tmp_path / 'port' / 'sampler_state.npz')
     assert jax_keys & JAX_RNG_KEYS == JAX_RNG_KEYS
     assert port_keys & PORT_RNG_KEYS[sampler] == PORT_RNG_KEYS[sampler]
-    assert port_keys - PORT_RNG_KEYS[sampler] == jax_keys - JAX_RNG_KEYS
+    # the port's snapshot also holds its own kept-draw count
+    assert 'meta_kept_done' in port_keys
+    assert port_keys - PORT_RNG_KEYS[sampler] - {'meta_kept_done'} \
+        == jax_keys - JAX_RNG_KEYS
     metas = {p: json.loads((tmp_path / p / 'sampler_meta.json').read_text())
              for p in ('jax', 'port')}
     assert metas['port']['kept_done'] == metas['jax']['kept_done'] == 16
