@@ -107,6 +107,20 @@ launches and the kernels against their plain versions at
 SIGKILL once a chunk is on disk and resumed here bit for bit; and one
 trainer run with ``profile: true`` whose trace names both kernels.
 
+The TPU's arithmetic (``'bfloat16'``: one bfloat16 pass, XLA's default
+on a TPU, where the JAX package's studies ran): the card's route (a bf16
+tensor-core ``bmm`` with a float32 result where torch offers
+``aten::bmm.dtype``, printed) against the CPU's rounding route, forward
+and both gradients, at the dense shapes of FCN [16, 16, 2] and
+[16, 16, 16, 2] (12 chains, 1052 rows), LeNet's grouped convolution and
+the text attention's q·kᵀ, each within 2·K·2⁻²⁴·Σ|a||b| of the CPU and
+K·2⁻²⁴·Σ|a||b| of a float64 product of the rounded operands; a witness of
+what torch's ``'medium'`` (the port's old mapping) computes on the card;
+and the airfoil trainer cut to ``PRECISION_CUT`` at the exact default and
+under the TPU setting (``torch_run_catalog.py --tpu-arithmetic``) in
+turns, with K1/K3 launches, the one-pass products counted, the recorded
+setting and each run's sampling chain-steps/s.
+
 The headline bench: ``bench_torch.py``'s modes in this process at full
 width with the step counts cut (``BENCH_*``): the headline at 12 and 48
 chains after a tuner run, the warm start at 12 and 48 members, airfoil
@@ -459,6 +473,14 @@ PROFILE_CUT = {'training.warmstart.max_epochs': 1,
 # chains, dim 592,386 (K1 and K3 on the streaming-cluster route), its four
 # arms each in a subprocess, the tuner cut to 30 steps (of 500) and the
 # timed block to 5 (of 10)
+# The TPU's one bfloat16 pass: the card's route against the CPU's at the
+# models' shapes (seeded inputs), and the airfoil trainer cut as the
+# catalogue's jobs, with 500 sampling steps for a steadier rate, at the
+# exact default and under the TPU setting in turns
+PRECISION_SEED = 12
+LENET_CONV2 = (6, 16, 5, 14, 0)   # in, out, kernel, input side, padding
+PRECISION_RESULTS = ROOT / 'results' / 'chip_smoke_precision'
+PRECISION_CUT = {**CATALOG_CUT, 'training.sampler.n_samples': 500}
 AB_SCRIPT = ROOT / 'experiments' / 'torch_dtype_ab_widefcn.py'
 AB_RESULTS = ROOT / 'results' / 'chip_smoke_dtype_ab.jsonl'
 AB_WIDTH, AB_SHAPE = 512, (12, 592_386)
@@ -3492,6 +3514,264 @@ Step by step: each card step is held against the same step taken on
             'profile_s': profile_s, 'profile_kernel_events': counts,
             'profile_launches': launches}
 
+    # -------------------------------------------------------- precision
+    def precision(self):
+        """The TPU's one bfloat16 pass (``'bfloat16'``): the card's route
+        against the CPU's at the models' shapes, forward and gradients; a
+        witness of what torch's ``'medium'`` computes on the card; and the
+        airfoil trainer cut to ``PRECISION_CUT`` under the TPU setting,
+        beside the exact run in turns."""
+        from mile_tpu_torch.models import blocks
+
+        route = blocks.one_pass_route(self.dev)
+        print(f'  one-pass route on the card: {route} (aten::bmm.dtype '
+              f'{"offered" if blocks.OUT_DTYPE_BMM else "absent"} in torch '
+              f'{self.torch.__version__})')
+        self.timings['precision'] = {'route': route}
+        self._one_pass_products()
+        self._medium_witness()
+        self._tpu_trainer()
+
+    def _one_pass_pair(self, fn, operands, grad_shape, seed):
+        """``fn(*operands)`` and its gradients by a seeded cotangent under
+        ``'bfloat16'``, on the card and on the CPU: (card, cpu, cotangent),
+        each a list [out, *grads] of float64 numpy arrays."""
+        import numpy as np
+
+        torch = self.torch
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        g = np.random.default_rng(seed).standard_normal(
+            grad_shape).astype(np.float32)
+        runs = []
+        for device in (self.dev, torch.device('cpu')):
+            ts = [torch.from_numpy(a).to(device).requires_grad_()
+                  for a in operands]
+            with matmul_precision('bfloat16'):
+                y = fn(*ts)
+                y.backward(torch.from_numpy(g).to(device))
+            runs.append([t.detach().cpu().double().numpy()
+                         for t in (y, *(t.grad for t in ts))])
+        return runs[0], runs[1], g
+
+    def _one_pass_check(self, label, card, cpu, exact, sums, ks):
+        """Each of out and gradients: card vs CPU within
+        2·K·2⁻²⁴·Σ|a||b| and card vs float64 within K·2⁻²⁴·Σ|a||b| a
+        value (both float32 sums of the same exact products, in other
+        orders)."""
+        import numpy as np
+
+        u = 2.0 ** -24
+        worst = {}
+        for what, c, p, e, s, k in zip(('out', 'grad a', 'grad b'), card,
+                                       cpu, exact, sums, ks):
+            d_cpu = float(np.max(np.abs(c - p) - 2 * k * u * s))
+            d_exact = float(np.max(np.abs(c - e) - k * u * s))
+            err = float(np.max(np.abs(c - p)))
+            worst[what] = err
+            self.check(d_cpu <= 0 and d_exact <= 0,
+                       f'{label} {what}: card vs CPU max|d| {err:.3g} within'
+                       f' 2·{k}·2^-24·Σ|a||b|, card vs float64 within '
+                       f'{k}·2^-24·Σ|a||b| (excess {max(d_cpu, d_exact):.3g})')
+        return worst
+
+    def _one_pass_products(self):
+        """The dense products of FCN [16, 16, 2] and [16, 16, 16, 2] (12
+        chains, airfoil's 1052 rows), LeNet's grouped convolution and the
+        text attention's q·kᵀ."""
+        import numpy as np
+        import torch.nn.functional as F
+
+        torch = self.torch
+        from mile_tpu_torch.models import blocks
+
+        def bf16(a):
+            return torch.from_numpy(a).bfloat16().double()
+
+        def bmm_exact(a, b, g):
+            a16, b16, g16 = bf16(a), bf16(b), bf16(g)
+            ab = lambda x, y: torch.bmm(x, y).numpy()
+            tr = lambda x: x.transpose(1, 2)
+            return ([ab(a16, b16), ab(g16, tr(b16)), ab(tr(a16), g16)],
+                    [ab(a16.abs(), b16.abs()), ab(g16.abs(), tr(b16).abs()),
+                     ab(tr(a16).abs(), g16.abs())])
+
+        rng = np.random.default_rng(PRECISION_SEED)
+        errs = {}
+        widths = [(5, 16), (16, 16), (16, 2)]      # airfoil's 5 features
+        for i, (k, n) in enumerate(widths):
+            a = rng.standard_normal((12, 1052, k)).astype(np.float32)
+            b = rng.standard_normal((12, k, n)).astype(np.float32)
+            card, cpu, g = self._one_pass_pair(
+                blocks.product, (a, b), (12, 1052, n), PRECISION_SEED + i)
+            exact, sums = bmm_exact(a, b, g)
+            errs[f'dense ({k}, {n})'] = self._one_pass_check(
+                f'dense (12, 1052, {k}) x (12, {k}, {n})', card, cpu, exact,
+                sums, (k, n, 1052))
+
+        # LeNet's grouped convolution: 10 chains, 64 images of the first
+        # convolution's pooled output
+        n_img, chains, (c_in, c_out, kk, hw, pad) = 64, 10, LENET_CONV2
+        h = rng.standard_normal((n_img, chains * c_in, hw, hw)).astype(
+            np.float32)
+        w = rng.standard_normal((chains * c_out, c_in, kk, kk)).astype(
+            np.float32) / kk
+        hw_out = hw + 2 * pad - kk + 1
+        conv = lambda x, y: blocks.conv(x, y, None, pad, chains)
+        card, cpu, g = self._one_pass_pair(
+            conv, (h, w), (n_img, chains * c_out, hw_out, hw_out),
+            PRECISION_SEED + 7)
+        h16, w16, g16 = bf16(h), bf16(w), bf16(g)
+
+        def conv_all(x, y, z):
+            return [F.conv2d(x, y, padding=pad, groups=chains).numpy(),
+                    torch.nn.grad.conv2d_input(x.shape, y, z, padding=pad,
+                                               groups=chains).numpy(),
+                    torch.nn.grad.conv2d_weight(x, y.shape, z, padding=pad,
+                                                groups=chains).numpy()]
+        exact = conv_all(h16, w16, g16)
+        sums = conv_all(h16.abs(), w16.abs(), g16.abs())
+        errs['lenet conv'] = self._one_pass_check(
+            f'LeNet grouped conv ({n_img}, {chains * c_in}, {hw}, {hw}) * '
+            f'({chains * c_out}, {c_in}, {kk}, {kk}), groups {chains}',
+            card, cpu, exact, sums,
+            (c_in * kk * kk, c_out * kk * kk, n_img * hw_out * hw_out))
+
+        # the text attention's q·kᵀ: 8 chains, 16 sequences, 8 heads of 8,
+        # context 70
+        c, n, heads, t, hd = 8, 16, 8, 70, 8
+        q = rng.standard_normal((c, n, heads, t, hd)).astype(np.float32)
+        kt = rng.standard_normal((c, n, heads, hd, t)).astype(np.float32)
+        card, cpu, g = self._one_pass_pair(
+            blocks.product, (q, kt), (c, n, heads, t, t), PRECISION_SEED + 8)
+        flat = lambda a: a.reshape(-1, *a.shape[-2:])
+        exact, sums = bmm_exact(flat(q), flat(kt), flat(g))
+        shapes = (card[0].shape, q.shape, kt.shape)
+        exact = [e.reshape(s) for e, s in zip(exact, shapes)]
+        sums = [s_.reshape(s) for s_, s in zip(sums, shapes)]
+        errs['attention q·kᵀ'] = self._one_pass_check(
+            f'attention q·kᵀ {q.shape} x {kt.shape}', card, cpu, exact, sums,
+            (hd, t, t))
+        self.timings['precision']['max_abs_card_vs_cpu'] = errs
+
+    def _medium_witness(self):
+        """torch's ``'medium'`` (the port's old mapping of ``'bfloat16'``)
+        against the one pass: 1 + 2⁻⁹ + 2⁻¹² is exact in float32, 1 + 2⁻⁹
+        in TF32 (10 mantissa bits) and 1 in bfloat16 (7)."""
+        torch = self.torch
+        from mile_tpu_torch.models import blocks
+        from mile_tpu_torch.utils.precision import matmul_precision
+
+        v = 1 + 2.0 ** -9 + 2.0 ** -12
+        a = torch.full((4, 64, 64), v, device=self.dev)
+        eye = torch.eye(64, device=self.dev).expand(4, 64, 64).contiguous()
+        names = {v: 'float32', 1 + 2.0 ** -9: 'TF32', 1.0: 'bfloat16'}
+        prev = torch.get_float32_matmul_precision()
+        try:
+            torch.set_float32_matmul_precision('medium')
+            medium = torch.bmm(a, eye)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        with matmul_precision('bfloat16'):
+            one_pass = blocks.product(a, eye)
+        got = {}
+        for key, y in (('medium', medium), ('one_pass', one_pass)):
+            vals = set(y.unique().tolist())
+            got[key] = names.get(vals.pop(), 'other') if len(vals) == 1 \
+                else 'mixed'
+        print(f"  torch's 'medium' on the card gave {got['medium']}; the "
+              f"port's 'bfloat16' gave {got['one_pass']}")
+        self.timings['precision']['medium_gave'] = got['medium']
+        self.check(got['medium'] in ('TF32', 'bfloat16')
+                   and got['one_pass'] == 'bfloat16',
+                   f"witness: 'medium' is {got['medium']} (not exact "
+                   f"float32), the one pass rounds to bfloat16 "
+                   f"({got['one_pass']})")
+
+    def _tpu_trainer(self):
+        """The airfoil trainer cut to ``PRECISION_CUT`` at the port's exact
+        default and under the TPU setting (as ``torch_run_catalog.py
+        --tpu-arithmetic``), in turns: exact, TPU, TPU, exact. K1/K3
+        launches of the TPU runs, the one-pass products counted, the
+        recorded setting, chain-steps/s of each run's sampling phase."""
+        import shutil
+
+        import yaml
+
+        torch = self.torch
+        from mile_tpu_torch.config import Config
+        from mile_tpu_torch.models import blocks
+        from mile_tpu_torch.ops import isokinetic as ops
+        from mile_tpu_torch.train.trainer import BDETrainer
+        from mile_tpu_torch.utils import precision
+
+        cat = self._experiments('torch_run_catalog')
+        (base,) = Config.from_file(CONFIG)
+        one_pass = blocks.OnePassProduct.apply
+        calls = [0]
+
+        def counted(*args):
+            calls[0] += 1
+            return one_pass(*args)
+
+        rates = {'exact': [], 'tpu': []}
+        launches = {'isokinetic_momentum': 0, 'partial_refresh': 0}
+        for i, arm in enumerate(('exact', 'tpu', 'tpu', 'exact')):
+            tpu = arm == 'tpu'
+            name = f'{PRECISION_RESULTS.name}_{i}_{arm}'
+            config = base.replace(
+                saving_dir=str(PRECISION_RESULTS.parent),
+                experiment_name=name,
+                **(cat.TPU_ROWS_WARMUP if tpu else {}), **PRECISION_CUT)
+            shutil.rmtree(PRECISION_RESULTS.parent / name,
+                          ignore_errors=True)
+            calls[0] = 0
+            before = precision.none_precision()
+            blocks.OnePassProduct.apply = counted
+            try:
+                if tpu:
+                    precision.set_none_precision('bfloat16')
+                trainer = BDETrainer(config, device=self.dev)
+                ops.reset_launch_counts()
+                _, result, metrics, _ = self._train(trainer)
+                n_launch = {'isokinetic_momentum':
+                            ops.isokinetic_momentum.launches,
+                            'partial_refresh': ops.partial_refresh.launches}
+            finally:
+                blocks.OnePassProduct.apply = one_pass
+                precision.set_none_precision(before)
+            scfg = config.training.sampler
+            steps = mclmc_steps(scfg)
+            n_sampled = math.ceil(scfg.n_samples / scfg.n_thinning) \
+                * scfg.n_thinning
+            rate = scfg.n_chains * n_sampled / result.seconds['sampling']
+            rates[arm].append(rate)
+            recorded = yaml.safe_load(
+                (trainer.exp_dir / 'config.yaml').read_text())
+            lppd = float(metrics['lppd'])
+            self.check(n_launch == {'isokinetic_momentum': 3 * steps,
+                                    'partial_refresh': steps}
+                       and (calls[0] > 0) == tpu
+                       and recorded.get('none_precision')
+                       == ('bfloat16' if tpu else None)
+                       and math.isfinite(lppd),
+                       f'{arm} run {i}: K1/K3 '
+                       f'{n_launch["isokinetic_momentum"]}/'
+                       f'{n_launch["partial_refresh"]} (3 and 1 x {steps} '
+                       f'steps), {calls[0]} one-pass products, config.yaml '
+                       f'none_precision {recorded.get("none_precision")}, '
+                       f'lppd {lppd:.4f}, ε '
+                       f'{float(result.tuned["step_size"].mean()):.5f}, '
+                       f'{rate:.0f} chain-steps/s sampling')
+            if tpu:
+                for k in launches:
+                    launches[k] += n_launch[k]
+        self.path_launches['precision'] = launches
+        self.timings['precision']['chain_steps_per_s'] = rates
+        print(f"  sampling chain-steps/s, exact {rates['exact']}, TPU "
+              f"setting {rates['tpu']} (a record: each cast is a launch on "
+              f"a host-bound step)")
+
     def dtype_ab(self):
         """The dtype A/B at W = 512 (AB_SHAPE, the streaming route), its
         four arms in subprocesses: each ok, K1/K3 launched 3 and 1 times
@@ -4308,6 +4588,10 @@ def main() -> int:
         smoke.phase('preemption: BDETrainer with checkpoint_sampling killed '
                     'with SIGKILL and resumed bit for bit; profile: true',
                     smoke.preemption)
+        smoke.phase('precision: the one bfloat16 pass on the card vs the '
+                    'CPU at the models\' shapes, forward and gradients; '
+                    '\'medium\' witness; airfoil under the TPU setting',
+                    smoke.precision)
         smoke.phase('dtype A/B: torch_dtype_ab_widefcn.py, FCN [512 x 3, 2],'
                     ' 12 chains, dim 592,386, the streaming route',
                     smoke.dtype_ab)
@@ -4346,7 +4630,8 @@ def main() -> int:
             # multi-process phase's one-process run, the orbax resume, the
             # catalogue's MCLMC jobs, the dtype A/B's arms and the study
             # queue's dataset jobs (both counted in their processes), the
-            # bench, the resumed preemption and the profiled trainer
+            # bench, the resumed preemption, the profiled trainer and the
+            # precision phase's runs under the TPU setting
             'launches': smoke.launches.get(name, 0) + sum(
                 path.get(name, 0) for path in smoke.path_launches.values()),
             'max_abs_err': err,

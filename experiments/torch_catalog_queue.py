@@ -6,13 +6,13 @@
     python experiments/torch_catalog_queue.py --root results/torch_catalog
         --stage 'dataset:_r1$' [--stage STUDY[:REGEX] ...]
         [--aggr-dir aggr_results_torch] [--cooloff S] [--device cuda|cpu]
-        [--runner CMD]
+        [--tpu-arithmetic] [--runner CMD]
 
 Each stage is one study of the catalogue, optionally narrowed by a regex
 on the job name, run as a fresh process of the runner,
 
     experiments/torch_run_catalog.py --root ROOT --only STUDY
-        [--name-filter REGEX] --job-timeout S --device D
+        [--name-filter REGEX] --job-timeout S --device D [--tpu-arithmetic]
 
 and, when that process exits, handled as the shell function handles it:
 
@@ -53,7 +53,14 @@ That is up to about 2,400 s alone on the card. Hosts differ by up to 1.5x
 on host-bound work, and jobs run side by side on one card share its
 host (protein's warm start ran 3.3x slower with six jobs at once than
 alone): 7,200 s leaves room for both. The longest job measured, protein
-at seed 1 beside five others, took 1,185 s (``PERF.md``).
+at seed 1 beside five others, took 1,185 s (``PERF.md``). The
+``dtype_ab`` (airfoil) and ``feasibility`` jobs run the same 50,000 +
+10,000 steps after the same warm start on the same sets, feasibility's
+through a 10-layer FCN, and get the same figure.
+
+``--tpu-arithmetic`` is passed on to every runner: its jobs run at the
+TPU's one bfloat16 pass wherever their precision is None (see the
+runner).
 
 The log (the runner's and the pooling's output, and the loop's own lines)
 is appended to ``ROOT/queue_driver.log``; the loop prints, per stage, the
@@ -81,7 +88,8 @@ ATTEMPTS = 3
 COOLOFF_S = 180.0
 DEFAULT_JOB_TIMEOUT_S = 1800.0
 # per-study job timeouts (s); the derivation is in the module docstring
-JOB_TIMEOUT_S = {'dataset': 7200.0}
+JOB_TIMEOUT_S = {'dataset': 7200.0, 'dtype_ab': 7200.0,
+                 'feasibility': 7200.0}
 
 
 @dataclasses.dataclass
@@ -118,13 +126,15 @@ class Queue:
 
     def __init__(self, root: Path, *, aggr_dir: Path = AGGR_DIR,
                  device: str = 'cuda', cooloff_s: float = COOLOFF_S,
-                 runner: Sequence[str] = RUNNER):
+                 runner: Sequence[str] = RUNNER,
+                 tpu_arithmetic: bool = False):
         self.root, self.aggr_dir = Path(root), Path(aggr_dir)
         if self.aggr_dir.resolve() == JAX_AGGR_DIR.resolve():
             raise ValueError(f'{self.aggr_dir} holds the JAX package\'s '
                              f'pooled studies; pool the port\'s elsewhere')
         self.device, self.cooloff_s = device, cooloff_s
         self.runner = list(runner)
+        self.tpu_arithmetic = tpu_arithmetic
         self.log_path = self.root / 'queue_driver.log'
         self.results: list[StageResult] = []
 
@@ -147,8 +157,8 @@ class Queue:
         if stage.name_filter:
             cmd += ['--name-filter', stage.name_filter]
         job_timeout = JOB_TIMEOUT_S.get(stage.study, DEFAULT_JOB_TIMEOUT_S)
-        return cmd + ['--job-timeout', f'{job_timeout:g}',
-                      '--device', self.device]
+        cmd += ['--job-timeout', f'{job_timeout:g}', '--device', self.device]
+        return cmd + ['--tpu-arithmetic'] if self.tpu_arithmetic else cmd
 
     def run_stage(self, stage: Stage) -> StageResult:
         result = StageResult(stage, [])
@@ -222,13 +232,18 @@ def main(argv=None) -> int:
     p.add_argument('--device', default='cuda',
                    help="the runner's --device (default 'cuda'; 'cpu' to "
                         'run on the CPU)')
+    p.add_argument('--tpu-arithmetic', action='store_true',
+                   help="the runner's --tpu-arithmetic: a None matmul "
+                        'precision is the TPU\'s one bfloat16 pass')
     p.add_argument('--runner', type=shlex.split, default=list(RUNNER),
                    help='the runner command, to which the loop appends '
-                        '--root, --only, --name-filter, --job-timeout and '
-                        '--device (default: torch_run_catalog.py)')
+                        '--root, --only, --name-filter, --job-timeout, '
+                        '--device and --tpu-arithmetic (default: '
+                        'torch_run_catalog.py)')
     args = p.parse_args(argv)
     queue = Queue(args.root, aggr_dir=args.aggr_dir, device=args.device,
-                  cooloff_s=args.cooloff, runner=args.runner)
+                  cooloff_s=args.cooloff, runner=args.runner,
+                  tpu_arithmetic=args.tpu_arithmetic)
     return queue.run(args.stage)
 
 

@@ -4,6 +4,7 @@
 
     python experiments/torch_dtype_ab_widefcn.py [--out FILE]
         [--warmup-steps 500] [--timed-steps 10] [--device cuda|cpu]
+        [--tpu-arithmetic]
 
 On FCN [W, W, W, 2] (W = 512 from ``MILE_AB_WIDTH``: dim 592,386) over
 65,536 x 128 synthetic rows (made with numpy from seed 0) and 12 chains,
@@ -15,14 +16,20 @@ measures what each dtype policy does to
     (``mfu_vs_arm_peak`` beside ``peak_tflops``).
 
 Arms (the JAX script's config values):
-  f32def    float32; ``matmul_precision: None``. In the port ``None`` is
-            exact float32 on the card (``utils/precision.py``), not the
-            TPU's default bf16 passes, so this arm runs the same matmuls
-            as f32strict
-  f32strict float32, ``matmul_precision: float32``
+  f32def    float32; ``matmul_precision: None``. By default ``None`` is
+            exact float32 in the port (``utils/precision.py``), so this
+            arm runs the same matmuls as f32strict; with
+            ``--tpu-arithmetic`` it is the TPU's one bfloat16 pass
+            (bf16 operands, float32 sums), as the JAX script's arm ran
+  f32strict float32, ``matmul_precision: float32``: exact either way
   bf16fwd   bfloat16 forward activations, float32 likelihood and energy
-            (``compute_dtype: bfloat16``)
-  f32tune   float32 tuner, sampling at ``matmul_precision: None``
+            (``compute_dtype: bfloat16``); its products take bfloat16
+            operands whatever ``None`` stands for
+  f32tune   float32 tuner, sampling at ``matmul_precision: None``: exact,
+            or one bfloat16 pass with ``--tpu-arithmetic``
+
+Under ``--tpu-arithmetic`` the arms' ids end in ``_tpu``, and each
+record's ``none_precision`` says what ``None`` stood for.
 
 The tuner (``warmup_mclmc``) and the timed block (the MCLMC kernel) go
 through K1 and K3; at dim 592,386 both take the streaming-cluster route.
@@ -72,13 +79,19 @@ ARMS = {'f32def': (None, None, None),
         'f32tune': (None, 'float32', None)}
 
 
-def arm_peak(compute_dtype, sample_precision) -> tuple[str, float]:
+def arm_peak(compute_dtype, sample_precision, none_precision='float32',
+             route='out_dtype') -> tuple[str, float]:
     """The type the timed block's matmuls run in, and its peak: bfloat16
-    with a bfloat16 forward; else what the sampling precision lets
-    cuBLAS take (``None`` and ``'float32'`` are exact float32)."""
-    if compute_dtype == 'bfloat16' or sample_precision == 'bfloat16':
+    with a bfloat16 forward; bfloat16 for the one pass (``'bfloat16'``, or
+    ``None`` standing for it) on the card's out_dtype route, float32 on
+    the rounding route (bf16-rounded operands, float32 products); TF32
+    for ``'tensorfloat32'``; else exact float32."""
+    precision = none_precision if sample_precision is None \
+        else sample_precision
+    if compute_dtype == 'bfloat16' or (precision == 'bfloat16'
+                                       and route == 'out_dtype'):
         kind = 'bfloat16'
-    elif sample_precision == 'tensorfloat32':
+    elif precision == 'tensorfloat32':
         kind = 'tensorfloat32'
     else:
         kind = 'float32'
@@ -119,14 +132,29 @@ def model_flops_per_step(width: int, n_rows: int = N_ROWS) -> float:
 
 def run_arm(tag: str, *, warmup_steps: int = WARMUP_STEPS,
             timed_steps: int = TIMED_STEPS, device: str = 'cuda',
-            width: int = WIDTH) -> dict:
-    """Tune and time one arm; returns its JSON record."""
+            width: int = WIDTH, tpu_arithmetic: bool = False) -> dict:
+    """Tune and time one arm (``tpu_arithmetic``: ``None`` is one
+    bfloat16 pass, as ``--tpu-arithmetic``); returns its JSON record."""
+    from mile_tpu_torch.utils import precision
+
+    before = precision.none_precision()
+    precision.set_none_precision('bfloat16' if tpu_arithmetic else before)
+    try:
+        return _run_arm(tag, warmup_steps, timed_steps, device, width,
+                        tpu_arithmetic)
+    finally:
+        precision.set_none_precision(before)
+
+
+def _run_arm(tag, warmup_steps, timed_steps, device, width, tpu_arithmetic):
     import torch
 
     from mile_tpu_torch.config import SamplerConfig
     from mile_tpu_torch.mcmc import mclmc
     from mile_tpu_torch.ops import isokinetic as ops
     from mile_tpu_torch.train.sampling import warmup_mclmc
+    from mile_tpu_torch.models.blocks import one_pass_route
+    from mile_tpu_torch.utils import precision
     from mile_tpu_torch.utils.device import resolve_device
     from mile_tpu_torch.utils.precision import matmul_precision
 
@@ -176,11 +204,14 @@ def run_arm(tag: str, *, warmup_steps: int = WARMUP_STEPS,
 
     eps = params.step_size.cpu().numpy()
     L = params.L.cpu().numpy()
-    kind, peak = arm_peak(compute_dtype, sample_prec)
+    none = precision.none_precision()
+    kind, peak = arm_peak(compute_dtype, sample_prec, none,
+                          one_pass_route(dev))
     flops = model_flops_per_step(width) * N_CHAINS * timed_steps
     route = ops.kernel_route(bayes.dim)
     return dict(
-        arm=f'{tag}_w{width}', dim=bayes.dim, n_chains=N_CHAINS,
+        arm=arm_id(tag, width, tpu_arithmetic), none_precision=none,
+        dim=bayes.dim, n_chains=N_CHAINS,
         warmup_steps=warmup_steps, timed_steps=timed_steps,
         warmup_wall_s=round(warmup_wall, 3),
         eps_mean=float(eps.mean()), eps_std=float(eps.std()),
@@ -205,12 +236,17 @@ def run_child(tag: str, args) -> int:
 
     try:
         rec = run_arm(tag, warmup_steps=args.warmup_steps,
-                      timed_steps=args.timed_steps, device=args.device)
+                      timed_steps=args.timed_steps, device=args.device,
+                      tpu_arithmetic=args.tpu_arithmetic)
     except Exception as exc:   # classified for the parent
         print(f'{type(exc).__name__}: {exc}'[-2000:], file=sys.stderr)
         return EXIT_FAULT if is_device_fault(exc) else 1
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def arm_id(tag: str, width: int, tpu_arithmetic: bool) -> str:
+    return f'{tag}_w{width}' + ('_tpu' if tpu_arithmetic else '')
 
 
 def done_arms(out: Path) -> set:
@@ -255,6 +291,9 @@ def main(argv=None) -> int:
     p.add_argument('--device', default='cuda',
                    help="torch device (default 'cuda'; 'cpu' to run on "
                         'the CPU)')
+    p.add_argument('--tpu-arithmetic', action='store_true',
+                   help='None is the TPU\'s one bfloat16 pass, as the JAX '
+                        "script's arms ran (see the docstring)")
     p.add_argument('--arm', default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.arm is not None:
@@ -266,8 +305,8 @@ def main(argv=None) -> int:
     done = done_arms(args.out)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     for tag in ARMS:
-        arm_id = f'{tag}_w{WIDTH}'
-        if arm_id in done:
+        arm = arm_id(tag, WIDTH, args.tpu_arithmetic)
+        if arm in done:
             print(f'[dtype_ab] {tag}: already recorded, skip')
             continue
         print(f'[dtype_ab] {tag}: starting (isolated subprocess)',
@@ -278,14 +317,15 @@ def main(argv=None) -> int:
                 [sys.executable, __file__, '--arm', tag,
                  '--warmup-steps', str(args.warmup_steps),
                  '--timed-steps', str(args.timed_steps),
-                 '--device', args.device],
+                 '--device', args.device]
+                + (['--tpu-arithmetic'] if args.tpu_arithmetic else []),
                 capture_output=True, text=True, timeout=ARM_TIMEOUT_S,
                 env=dict(os.environ, MILE_AB_WIDTH=str(WIDTH)))
             rc, out, err = proc.returncode, proc.stdout, proc.stderr
         except subprocess.TimeoutExpired as exc:
             rc, out, err = -1, '', f'timeout: {exc}'
         wall = time.time() - t0
-        rec = child_record(arm_id, rc, out, err, wall)
+        rec = child_record(arm, rc, out, err, wall)
         with open(args.out, 'a') as f:
             f.write(json.dumps(rec) + '\n')
         print(f"[dtype_ab] {tag}: {rec.get('verdict', 'ok')} in "

@@ -4,7 +4,8 @@
 
     python experiments/torch_run_catalog.py [--root results/torch_catalog]
         [--only STUDY[,STUDY]] [--name-filter REGEX] [--limit N]
-        [--mclmc-first] [--job-timeout S] [--device cuda|cpu] [--dry-run]
+        [--mclmc-first] [--job-timeout S] [--device cuda|cpu]
+        [--tpu-arithmetic] [--dry-run]
 
 Runs the same 248 jobs (studies, names, base configs, overrides with the
 depth-8 NUTS caps, warm-start providers), serially in one process,
@@ -40,6 +41,20 @@ the queue goes on. The JAX runner's strike-less exit on gRPC's
 counterpart: the card is local. The watchdog guards a job that stops
 making progress without raising (a hung launch or collective) as it
 guarded a client blocked on a dead TPU worker.
+
+``--tpu-arithmetic`` runs the jobs at the arithmetic the JAX package's
+pooled studies (``aggr_results/``) ran at on the TPU: a None matmul
+precision stands for one bfloat16 pass
+(``mile_tpu_torch.utils.precision.set_none_precision('bfloat16')``), so
+the warm start, and the tuner and the draws wherever the config leaves
+them at None, run at it, while the evaluation and NUTS/HMC stay exact
+float32 as in the JAX package. A job whose overrides do not name
+``training.sampler.warmup_matmul_precision`` gets None there
+(``TPU_ROWS_WARMUP``): every pooled JAX row was taken while that knob
+defaulted to None (the ``dtype_ab`` rows, 30cdad6) or did not exist yet
+(``dataset``, ``tabular_classif``, ``feasibility``), so their tuners ran
+at the chip's default. Each such job's ``config.yaml`` records the
+setting (``none_precision: bfloat16``), and so does its pooled row.
 
 Runs on the GPU unless ``--device cpu`` is given; without a CUDA device it
 raises rather than run on the CPU unasked. There is no compilation cache
@@ -101,6 +116,10 @@ FAULT_MARKERS = ('CUDA error', 'device-side assert', 'illegal memory access',
 
 EXIT_FAULT, EXIT_STOP = 70, 75
 
+# The tuner's precision of the JAX package's pooled rows (see the module
+# docstring), given under --tpu-arithmetic to every job that names none.
+TPU_ROWS_WARMUP = {'training.sampler.warmup_matmul_precision': None}
+
 
 @dataclasses.dataclass
 class Job:
@@ -123,14 +142,17 @@ class Job:
             return root / self.warmstart_from
         return root / self.study / self.warmstart_from
 
-    def config(self, root: Path):
+    def config(self, root: Path, tpu_arithmetic: bool = False):
         """The base config with the job's directory, its overrides and its
-        warm-start provider, as dotted-path updates."""
+        warm-start provider, as dotted-path updates; ``tpu_arithmetic``:
+        the tuner's precision of the JAX rows where the job names none."""
         from mile_tpu_torch.config import Config
 
         (cfg,) = Config.from_file(ROOT / self.base)
         updates = {'saving_dir': str(root / self.study),
-                   'experiment_name': self.name, **self.overrides}
+                   'experiment_name': self.name,
+                   **(TPU_ROWS_WARMUP if tpu_arithmetic else {}),
+                   **self.overrides}
         ws = self.warmstart_dir(root)
         if ws is not None:
             updates['training.warmstart.warmstart_exp_dir'] = str(ws)
@@ -356,15 +378,27 @@ def _launches() -> dict:
 
 
 def run_queue(jobs: list[Job], root: Path, *, job_timeout: float = 1800.0,
-              device: str = 'cuda') -> int:
+              device: str = 'cuda', tpu_arithmetic: bool = False) -> int:
     """Run ``jobs`` into ``root``; returns 0 (all ran or were skipped), 1
     (one failed), 70 (a device fault or a hang: relaunch) or 75 (``STOP``
-    found and consumed)."""
-    from mile_tpu_torch.train import trainer as trainer_mod
+    found and consumed). ``tpu_arithmetic``: as ``--tpu-arithmetic``, the
+    process's setting restored on return."""
+    from mile_tpu_torch.utils import precision
     from mile_tpu_torch.utils.device import resolve_device
 
     resolve_device(device)   # no GPU and not asked for the CPU: raise
-    root = Path(root)
+    before = precision.none_precision()
+    precision.set_none_precision('bfloat16' if tpu_arithmetic else before)
+    try:
+        return _run_queue(jobs, Path(root), job_timeout, device,
+                          tpu_arithmetic)
+    finally:
+        precision.set_none_precision(before)
+
+
+def _run_queue(jobs, root, job_timeout, device, tpu_arithmetic) -> int:
+    from mile_tpu_torch.train import trainer as trainer_mod
+
     root.mkdir(parents=True, exist_ok=True)
     fault_log = root / 'FAULTS.jsonl'
     strikes_of = fault_counts(fault_log)
@@ -430,8 +464,8 @@ def run_queue(jobs: list[Job], root: Path, *, job_timeout: float = 1800.0,
             watchdog.daemon = True
             watchdog.start()
             try:
-                trainer = trainer_mod.BDETrainer(job.config(root),
-                                                 device=device)
+                trainer = trainer_mod.BDETrainer(
+                    job.config(root, tpu_arithmetic), device=device)
                 metrics = trainer.train(report=True)
                 wall = time.time() - t0
                 done += 1
@@ -489,6 +523,9 @@ def main(argv=None) -> int:
     p.add_argument('--device', default='cuda',
                    help="torch device (default 'cuda'; 'cpu' to run on "
                         'the CPU)')
+    p.add_argument('--tpu-arithmetic', action='store_true',
+                   help='a None matmul precision is one bfloat16 pass, as '
+                        "the JAX rows' on the TPU (see the docstring)")
     args = p.parse_args(argv)
 
     jobs = select_jobs(build_jobs(), args.only, args.name_filter,
@@ -501,7 +538,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s %(message)s')
     return run_queue(jobs, Path(args.root), job_timeout=args.job_timeout,
-                     device=args.device)
+                     device=args.device, tpu_arithmetic=args.tpu_arithmetic)
 
 
 if __name__ == '__main__':

@@ -135,9 +135,9 @@ class SamplerConfig(BaseConfig):
     checkpoint_sampling: bool = False
     likelihood_chunk_size: Optional[int] = None
     compute_dtype: Optional[str] = None
-    # matmul precision of the sampling phase and of the tuner; the port
-    # maps them onto torch's float32 matmul precision (see
-    # ``mile_tpu_torch.train.sampling.matmul_precision``)
+    # matmul arithmetic of the sampling phase and of the tuner; None is the
+    # process's ``mile_tpu_torch.utils.precision.none_precision`` (see
+    # that module)
     matmul_precision: Optional[str] = None
     warmup_matmul_precision: Optional[str] = 'float32'
     num_integration_steps: int = 32

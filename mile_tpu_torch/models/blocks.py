@@ -12,8 +12,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from mile_tpu_torch.models.layout import FlatLayout
+from mile_tpu_torch.utils.precision import arithmetic
 
 # flax.linen.initializers.lecun_normal: a normal truncated to [-2, 2],
 # rescaled by this constant so that its variance is 1/fan_in
@@ -76,15 +78,127 @@ def dense_params(in_features: int, features: int, use_bias: bool) -> dict:
     return shapes
 
 
+# The one bfloat16 pass (XLA's DEFAULT on a TPU) on the card: a bf16
+# tensor-core product with a float32 result, where this torch has the
+# out_dtype overload of bmm (CUDA only); elsewhere the rounding route.
+OUT_DTYPE_BMM = hasattr(torch.ops.aten.bmm, 'dtype')
+
+
+def one_pass_route(device: torch.device | str) -> str:
+    """``'out_dtype'``: ``torch.bmm(a_bf16, b_bf16, out_dtype=float32)``;
+    ``'rounding'``: operands rounded to bfloat16 and back, then an exact
+    float32 product. Chosen by the device and by what torch offers, never
+    after a failed launch."""
+    if torch.device(device).type == 'cuda' and OUT_DTYPE_BMM:
+        return 'out_dtype'
+    return 'rounding'
+
+
+def _one_pass_bmm(a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
+    """bfloat16 ``a16`` (B, M, K) times ``b16`` (B, K, N): exact products,
+    float32 sums and result (inside a scope, so TF32 is off)."""
+    if one_pass_route(a16.device) == 'out_dtype':
+        return torch.bmm(a16, b16, out_dtype=torch.float32)
+    return torch.bmm(a16.float(), b16.float())
+
+
+class OnePassProduct(torch.autograd.Function):
+    """``bmm`` at one bfloat16 pass, its cotangent products too (grad·bᵀ
+    and aᵀ·grad, the cotangent rounded as the operands), as JAX's
+    transposed dots run under the forward's precision."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        return _one_pass_bmm(a16, b16)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        a16, b16 = ctx.saved_tensors
+        g16 = grad.to(torch.bfloat16)
+        da = (_one_pass_bmm(g16, b16.transpose(1, 2))
+              if ctx.needs_input_grad[0] else None)
+        db = (_one_pass_bmm(a16.transpose(1, 2), g16)
+              if ctx.needs_input_grad[1] else None)
+        return da, db
+
+
+class OnePassConv(torch.autograd.Function):
+    """``conv2d`` (no bias) at one bfloat16 pass: input, filter and, in
+    the backward, the cotangent rounded to bfloat16, then float32
+    convolutions with TF32 off (the rounding route; cuDNN has no float32
+    result for bfloat16 operands). The gradients through
+    ``torch.nn.grad``'s ``conv2d_input`` and ``conv2d_weight``."""
+
+    @staticmethod
+    def forward(ctx, h, w, padding, groups):
+        h16, w16 = h.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(h16, w16)
+        ctx.padding, ctx.groups = padding, groups
+        return F.conv2d(h16.float(), w16.float(), None, padding=padding,
+                        groups=groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        h16, w16 = ctx.saved_tensors
+        g = grad.to(torch.bfloat16).float()
+        dh = (torch.nn.grad.conv2d_input(
+            h16.shape, w16.float(), g, padding=ctx.padding,
+            groups=ctx.groups) if ctx.needs_input_grad[0] else None)
+        dw = (torch.nn.grad.conv2d_weight(
+            h16.float(), w16.shape, g, padding=ctx.padding,
+            groups=ctx.groups) if ctx.needs_input_grad[1] else None)
+        return dh, dw, None, None
+
+
+def _one_pass(*operands: torch.Tensor) -> bool:
+    return (arithmetic() == 'bfloat16'
+            and all(t.dtype == torch.float32 for t in operands))
+
+
+def product(a: torch.Tensor, b: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every product of the models: ``a`` (..., M, K) times ``b`` (...,
+    K, N), the leading axes equal, plus ``bias`` broadcast to the result,
+    at the scope's arithmetic (:func:`~mile_tpu_torch.utils.precision.
+    arithmetic`). Under ``'bfloat16'`` float32 operands take one bfloat16
+    pass and the bias is a float32 add after it (XLA's bias add is no
+    dot); otherwise ``matmul`` or ``baddbmm`` at torch's float32
+    precision, which the scope sets. bfloat16 operands (``compute_dtype``)
+    never change."""
+    if _one_pass(a, b):
+        lead = a.shape[:-2]
+        y = OnePassProduct.apply(a.reshape(-1, *a.shape[-2:]),
+                                 b.reshape(-1, *b.shape[-2:]))
+        y = y.view(*lead, *y.shape[-2:])
+        return y if bias is None else y + bias
+    if bias is None:
+        return torch.matmul(a, b)
+    return torch.baddbmm(bias, a, b)
+
+
+def conv(h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+         padding: int, groups: int) -> torch.Tensor:
+    """Every convolution of the models, at the scope's arithmetic, as
+    :func:`product`."""
+    if _one_pass(h, w):
+        y = OnePassConv.apply(h, w, padding, groups)
+        return y if bias is None else y + bias.view(1, -1, 1, 1)
+    return F.conv2d(h, w, bias, padding=padding, groups=groups)
+
+
 def dense(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
           name: str, use_bias: bool = True) -> torch.Tensor:
     """The Dense layer ``name`` of every chain: ``h`` (C, N, in) ->
     (C, N, out). A Flax Dense kernel is ``(in, out)``, as ``bmm`` wants."""
     w = leaf_view(theta, layout, f'{name}/kernel')
     if not use_bias:
-        return torch.bmm(h, w)
-    return torch.baddbmm(leaf_view(theta, layout, f'{name}/bias')
-                         .unsqueeze(1), h, w)
+        return product(h, w)
+    return product(h, w, leaf_view(theta, layout, f'{name}/bias')
+                   .unsqueeze(1))
 
 
 def conv2d(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
@@ -105,8 +219,7 @@ def conv2d(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
         n_chains, kh, kw, c_in, c_out).permute(0, 4, 3, 1, 2).reshape(
         n_chains * c_out, c_in, kh, kw)
     bias = theta[:, b.offset:b.offset + b.size].reshape(-1)
-    return F.conv2d(h, w, bias, padding=padding,
-                    groups=1 if shared else n_chains)
+    return conv(h, w, bias, padding, 1 if shared else n_chains)
 
 
 class FullyConnected(nn.Module):
@@ -312,7 +425,7 @@ def multi_head_attention(theta: torch.Tensor, x: torch.Tensor,
 
     def project(name):
         w = leaf_view(theta, layout, f'{scope}/{name}/kernel')
-        y = torch.bmm(h, w.reshape(n_chains, f, qkv_dim))
+        y = product(h, w.reshape(n_chains, f, qkv_dim))
         if bias:
             y = y + leaf_view(theta, layout, f'{scope}/{name}/bias').reshape(
                 n_chains, 1, qkv_dim)
@@ -321,19 +434,16 @@ def multi_head_attention(theta: torch.Tensor, x: torch.Tensor,
 
     q = project('query') / math.sqrt(head_dim)
     k, v = project('key'), project('value')
-    scores = torch.matmul(q, k.transpose(-1, -2))      # (C, N, H, T, T)
+    scores = product(q, k.transpose(-1, -2))           # (C, N, H, T, T)
     if mask is not None:    # one pass; masked_fill would clone first
         scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     weights = F.softmax(scores, dim=-1, dtype=torch.float32).to(scores.dtype)
-    y = torch.matmul(weights, v).transpose(2, 3).reshape(
+    y = product(weights, v).transpose(2, 3).reshape(
         n_chains, n * t, qkv_dim)
     w = leaf_view(theta, layout, f'{scope}/out/kernel').reshape(
         n_chains, qkv_dim, out_features)
-    if bias:
-        y = torch.baddbmm(leaf_view(theta, layout, f'{scope}/out/bias')
-                          .unsqueeze(1), y, w)
-    else:
-        y = torch.bmm(y, w)
+    y = product(y, w, leaf_view(theta, layout, f'{scope}/out/bias')
+                .unsqueeze(1) if bias else None)
     return y.view(n_chains, n, t, out_features)
 
 

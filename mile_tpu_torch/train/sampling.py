@@ -38,7 +38,7 @@ from mile_tpu_torch.mcmc.adaptation.mclmc_tuning import (
     mclmc_tune,
 )
 from mile_tpu_torch.train.resume import SamplerCheckpoint, generator_digest
-from mile_tpu_torch.utils.precision import matmul_precision
+from mile_tpu_torch.utils.precision import matmul_precision, resolve
 
 logger = logging.getLogger(__name__)
 
@@ -74,7 +74,10 @@ def warmup_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
                  generator: torch.Generator, positions: torch.Tensor):
     """Tune (ε, L, preconditioner) for every chain simultaneously, under
     ``cfg.warmup_matmul_precision`` (default exact float32: the tuner reads
-    per-step energies). Returns (states, params, trace or None)."""
+    per-step energies), or ``cfg.matmul_precision`` where that is None; a
+    None for both is the process's :func:`~mile_tpu_torch.utils.precision.
+    none_precision`, as a scope-less tuner on the TPU. Returns (states,
+    params, trace or None)."""
     tcfg = tuning_config(cfg)
     with matmul_precision(cfg.warmup_matmul_precision
                           or cfg.matmul_precision):
@@ -271,8 +274,8 @@ def run_mclmc(logdensity_and_grad: Callable, cfg: SamplerConfig,
     else:
         logger.info('> starting MCLMC warmup (%d chains, %d steps, '
                     'matmul=%s)...', n_chains, cfg.warmup_steps,
-                    cfg.warmup_matmul_precision or cfg.matmul_precision
-                    or 'default')
+                    resolve(cfg.warmup_matmul_precision
+                            or cfg.matmul_precision))
         state, params, warmup_trace = warmup_mclmc(
             logdensity_and_grad, cfg, generator, init_positions)
         t1 = time.perf_counter()

@@ -24,7 +24,9 @@ chunked over observations by the evaluation's planner, since unchunked
 they would hold every member's activations of the whole split at once
 (about 7 GB for LeNet on 12,000 images and 10 members; the IMDB-width
 attention classifier holds 8 heads x 70 x 70 attention weights per member
-and sequence). The warm start runs in exact float32, convolutions included
+and sequence). The warm start runs at the arithmetic a ``None`` precision
+stands for, as the JAX package's runs at XLA's default: exact float32,
+convolutions included, unless a runner set the TPU's one bfloat16 pass
 (see :mod:`mile_tpu_torch.utils.precision`).
 
 With a ``mesh`` (:class:`~mile_tpu_torch.parallel.mesh.ChainMesh`, the
@@ -228,7 +230,7 @@ def train_ensemble(model, loader, config: WarmstartConfig, task: Task,
     """Train ``n_members`` networks, the forward and backward passes split
     over ``mesh``'s chains axis (:class:`MemberShards`); returns (flat params (M, dim) on the loader's device,
     metrics)."""
-    with matmul_precision('float32'):
+    with matmul_precision(None):
         return _train_ensemble(model, loader, config, task, n_members,
                                generator, init, mesh)
 

@@ -427,3 +427,45 @@ def test_a_provider_and_its_consumer_end_to_end(tmp_path, jax_pooled):
     table = summarize_study.summarize(
         df, ['experiment_name'], ['lppd', 'step_size_mean', 'L_mean'])
     assert 'bike_mclmc_trust2.0_r1' in table and '| n |' in table
+
+
+@pytest.mark.parametrize('name,warmup', [
+    ('airfoil_mclmc_f32def_r1', None),      # names None itself
+    ('airfoil_mclmc_f32tune_r1', 'float32'),
+    ('airfoil_mclmc_f32strict_r1', None),   # the JAX rows' default then
+])
+def test_the_tpu_arithmetic_gives_the_jax_rows_tuner(name, warmup,
+                                                     tmp_path):
+    """Under ``--tpu-arithmetic`` a job that names no tuner precision gets
+    None, the JAX package's default when its pooled rows were taken; one
+    that names it keeps it. Without the flag the port's default stays."""
+    (job,) = [j for j in cat.build_jobs() if j.name == name]
+    tpu = job.config(tmp_path, tpu_arithmetic=True).training.sampler
+    assert tpu.warmup_matmul_precision == warmup
+    assert tpu.matmul_precision == job.overrides.get(
+        'training.sampler.matmul_precision')
+    plain = job.config(tmp_path).training.sampler
+    assert plain.warmup_matmul_precision == job.overrides.get(
+        'training.sampler.warmup_matmul_precision', 'float32')
+
+
+def test_a_job_under_the_tpu_arithmetic_records_it(tmp_path):
+    """One cut job through ``run_queue(tpu_arithmetic=True)`` on the CPU:
+    its config.yaml and its pooled row say ``none_precision: bfloat16``,
+    its tuner ran at None, and the process's setting is restored."""
+    import yaml
+
+    from mile_tpu_torch.utils import precision
+
+    root = tmp_path / 'catalog'
+    jobs = [_cut(j) for j in cat.build_jobs()
+            if j.name == 'uci_mclmc_yacht_r1']
+    assert cat.run_queue(jobs, root, device='cpu', tpu_arithmetic=True) == 0
+    assert precision.none_precision() == 'float32'
+    exp = root / 'dataset' / 'uci_mclmc_yacht_r1'
+    written = yaml.safe_load((exp / 'config.yaml').read_text())
+    assert written['none_precision'] == 'bfloat16'
+    assert written['training']['sampler']['warmup_matmul_precision'] is None
+    assert 'matmul=bfloat16' in (exp / 'training.log').read_text()
+    (row,) = pool_results.pool(root).to_dict('records')
+    assert row['none_precision'] == 'bfloat16' and np.isfinite(row['lppd'])

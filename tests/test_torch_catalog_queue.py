@@ -39,6 +39,7 @@ STUB = textwrap.dedent('''
     for flag in ('--root', '--only', '--name-filter', '--job-timeout',
                  '--device'):
         p.add_argument(flag)
+    p.add_argument('--tpu-arithmetic', action='store_true')
     args = p.parse_args()
     with open(state / 'calls.jsonl', 'a') as f:
         f.write(json.dumps({{'argv': sys.argv[1:], **vars(args)}}) + '\\n')
@@ -140,6 +141,8 @@ def test_three_faults_abandon_the_stage_and_the_next_runs(tmp_path, stub):
     ('dataset', 'cpu', '7200'),
     ('tabular_classif', 'cuda', '1800'),
     ('dataset', 'cuda', '7200'),
+    ('dtype_ab', 'cuda', '7200'),
+    ('feasibility', 'cuda', '7200'),
 ])
 def test_job_timeout_and_device_reach_the_runner(tmp_path, stub, study,
                                                  device, want):
@@ -150,6 +153,24 @@ def test_job_timeout_and_device_reach_the_runner(tmp_path, stub, study,
     (call,) = launches()
     assert call['argv'] == ['--root', str(tmp_path / 'root'), '--only',
                             study, '--job-timeout', want, '--device', device]
+
+
+def test_the_tpu_arithmetic_reaches_the_runner(tmp_path, stub):
+    """``--tpu-arithmetic`` goes to every launch of the runner, after the
+    flags the loop always passes; without it the runner gets none."""
+    runner, script, launches = stub
+    script(dataset=[70, 0], yacht=[0])
+    rc = tq.main(['--root', str(tmp_path / 'root'), '--stage', 'dataset',
+                  '--aggr-dir', str(tmp_path / 'aggr'), '--cooloff', '0',
+                  '--device', 'cpu', '--tpu-arithmetic',
+                  '--runner', shlex.join(runner)])
+    assert rc == 0
+    calls = launches()
+    assert [c['argv'][-1] for c in calls] == ['--tpu-arithmetic'] * 2
+    assert all(c['tpu_arithmetic'] for c in calls)
+    queue = _queue(tmp_path / 'plain', runner)
+    assert queue.run([tq.Stage('yacht')]) == 0
+    assert launches()[-1]['tpu_arithmetic'] is False
 
 
 def test_the_dataset_timeout_fits_its_longest_job():
@@ -294,3 +315,39 @@ def test_the_jax_study_has_every_compared_column():
         f'uci_mclmc_{d}' for d in ('airfoil', 'concrete', 'energy', 'yacht',
                                    'bikesharing', 'protein'))
     assert set(groups) == {3}
+
+
+def test_jobs_side_by_side(tmp_path, stub):
+    """``experiments/torch_study_side_by_side.sh``: one loop per spec,
+    started together (a ``:tpu`` spec with ``--tpu-arithmetic``), each
+    loop's exit code, then the root's study pooled and its runs copied to
+    OUT without their draws and warm-start curves, members kept."""
+    import os
+
+    runner, script, launches = stub
+    script(dataset=[0])
+    root = tmp_path / 'root'
+    out = tmp_path / 'out'
+    job = root / 'dataset' / 'dataset_job_r1'
+    for name in ('samples/samples.bin', 'warmstart/metrics.pkl',
+                 'warmstart/params_0.npz'):
+        (job / name).parent.mkdir(parents=True, exist_ok=True)
+        (job / name).write_bytes(b'bytes')
+    env = dict(os.environ, DEVICE='cpu', RUNNER=shlex.join(runner))
+    proc = subprocess.run(
+        ['bash', str(ROOT / 'experiments' / 'torch_study_side_by_side.sh'),
+         str(out), '60', f'{root}:dataset:_r1$:tpu', f'{root}:dataset:_r2$'],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loops = (out / 'loops.txt').read_text().splitlines()
+    assert [line.split()[-1] for line in loops[:2]] == ['0', '0']
+    assert loops[2].startswith('wall_s ')
+    flags = sorted(c['tpu_arithmetic'] for c in launches())
+    assert flags == [False, True]
+    pooled = pd.read_csv(out / 'root' / 'aggr_dataset.csv')
+    assert pooled['experiment_name'].tolist() == ['dataset_job_r1']
+    copied = out / 'root' / 'dataset' / 'dataset_job_r1'
+    assert (copied / 'metrics.pkl').exists()
+    assert (copied / 'warmstart' / 'params_0.npz').exists()
+    assert not (copied / 'samples' / 'samples.bin').exists()
+    assert not (copied / 'warmstart' / 'metrics.pkl').exists()

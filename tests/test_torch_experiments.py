@@ -118,6 +118,42 @@ def _ok(tag):
     return 0, f'progress line\n{json.dumps({"arm": f"{tag}_w512"})}\n'
 
 
+def test_the_tpu_arithmetic_reaches_each_arm(tmp_path, monkeypatch):
+    """``--tpu-arithmetic`` goes to every child, and its arms are recorded
+    apart from the exact arms: ids ending in ``_tpu``."""
+    seen = []
+
+    def run(cmd, **kwargs):
+        seen.append(cmd)
+        tag = cmd[cmd.index('--arm') + 1]
+        return subprocess.CompletedProcess(
+            cmd, 0, json.dumps({'arm': f'{tag}_w512_tpu'}) + '\n', '')
+
+    monkeypatch.setattr(ab.subprocess, 'run', run)
+    monkeypatch.setattr(ab, 'ARMS', {'f32def': ab.ARMS['f32def']})
+    out = tmp_path / 'ab.jsonl'
+    out.write_text(json.dumps({'arm': 'f32def_w512'}) + '\n')
+    assert ab.main(['--device', 'cpu', '--out', str(out),
+                    '--tpu-arithmetic']) == 0
+    (cmd,) = seen
+    assert cmd[-1] == '--tpu-arithmetic'
+    assert ab.done_arms(out) == {'f32def_w512', 'f32def_w512_tpu'}
+
+
+def test_an_arm_records_what_none_stood_for():
+    """One arm in process (W = 16 over the 65,536 rows, 2 tuner steps)
+    under the TPU setting: the record says ``bfloat16``, and the process's
+    setting is back to exact float32 afterwards."""
+    from mile_tpu_torch.utils import precision
+
+    rec = ab.run_arm('f32def', warmup_steps=2, timed_steps=1, device='cpu',
+                     width=16, tpu_arithmetic=True)
+    assert rec['arm'] == 'f32def_w16_tpu'
+    assert rec['none_precision'] == 'bfloat16'
+    assert rec['matmul_type'] == 'float32'      # the CPU's rounding route
+    assert precision.none_precision() == 'float32'
+
+
 @pytest.mark.parametrize('verdict', ['timeout', 'error', 'kernel_fault'])
 def test_a_failed_arm_runs_again(verdict, tmp_path, monkeypatch):
     """Only records without a ``verdict`` count as done: an arm whose last
@@ -163,11 +199,25 @@ def test_a_child_without_one_record_is_a_failure(stdout, tmp_path,
 
 def test_arm_peaks():
     """float32 arms against 67 TFLOP/s, the bf16 forward against the
-    BF16 tensor-core peak; ``None`` is exact float32 in the port."""
+    BF16 tensor-core peak; ``None`` is exact float32 in the port by
+    default. Where ``None`` stands for the TPU's one bfloat16 pass, the
+    arms that sample at ``None`` run bf16 tensor-core products on the
+    card's out_dtype route, and float32 products of bf16-rounded operands
+    on the rounding route."""
     assert {tag: ab.arm_peak(c, s)[0] for tag, (c, _, s) in
             ab.ARMS.items()} == {'f32def': 'float32', 'f32strict': 'float32',
                                  'bf16fwd': 'bfloat16', 'f32tune': 'float32'}
     assert ab.arm_peak(None, 'tensorfloat32') == ('tensorfloat32', 494.7e12)
+    assert {tag: ab.arm_peak(c, s, 'bfloat16')[0] for tag, (c, _, s) in
+            ab.ARMS.items()} == {'f32def': 'bfloat16',
+                                 'f32strict': 'float32',
+                                 'bf16fwd': 'bfloat16',
+                                 'f32tune': 'bfloat16'}
+    assert ab.arm_peak(None, None, 'bfloat16') == ('bfloat16', 989.4e12)
+    assert {tag: ab.arm_peak(c, s, 'bfloat16', 'rounding')[0]
+            for tag, (c, _, s) in ab.ARMS.items()} == {
+        'f32def': 'float32', 'f32strict': 'float32', 'bf16fwd': 'bfloat16',
+        'f32tune': 'float32'}
     assert ab.model_flops_per_step(512) == 2 * 3 * 2 * 65_536 * (
         128 * 512 + 2 * 512 * 512 + 1024)
 
