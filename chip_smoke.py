@@ -102,7 +102,12 @@ later stage with 75 unpooled; then the dataset study's six r1 jobs, cut to
 ``CATALOG_CUT``, through the loop (``--catalog-cut-worker``), pooled and
 compared by ``experiments/torch_compare_study.py``, with each job's K1/K3
 launches and the kernels against their plain versions at
-``DATASET_SHAPES``. A real preemption: ``BDETrainer`` with
+``DATASET_SHAPES``; the catalogue's cut sonar job pooled and compared
+through the classification metric set (LPPD, accuracy, ε, L), and the
+feasibility study's energy pair (``FEAS_STAGE``, the 10-layer FCN at
+``FEAS_SHAPE``, the tuned arm preconditioned) cut, through the loop,
+pooled and compared value by value, with K1 and K3 against their plain
+versions at its shape. A real preemption: ``BDETrainer`` with
 ``checkpoint_sampling`` in a worker (``--preempt-worker ROOT``) killed with
 SIGKILL once a chunk is on disk and resumed here bit for bit; and one
 trainer run with ``profile: true`` whose trace names both kernels.
@@ -183,9 +188,12 @@ BENCH_SHAPES = [(48, 674), (192, 674), (768, 674), (1_536, 674),
 # airfoil, concrete, energy, yacht, bikesharing, protein
 DATASET_SHAPES = [(12, 402), (12, 450), (12, 450), (12, 418), (12, 514),
                   (12, 466)]
+# the K1/K3 shape of the feasibility study's energy jobs (the 10-layer FCN
+# over 8 features), which the study queue's phase runs cut
+FEAS_SHAPE = (12, 2_354)
 TIMED_SHAPES = [(12, 674), (1, 674), (12, 178), (10, 61_706),
                 (8, 65_248), (2, 300_000), (12, 592_386), *CATALOG_SHAPES,
-                *BENCH_SHAPES, *sorted(set(DATASET_SHAPES))]
+                *BENCH_SHAPES, *sorted(set(DATASET_SHAPES)), FEAS_SHAPE]
 
 MAIN_SHAPE = (12, 674)
 CUT = {'training.warmstart.max_epochs': 20,
@@ -451,6 +459,16 @@ QUEUE_RESULTS = RESULTS / 'queue'
 QUEUE_AGGR = RESULTS / 'queue_aggr'
 QUEUE_COOLOFF_S = 1
 QUEUE_STOP_STAGE = ('dataset', '^uci_mclmc_yacht_r1$')
+# Then the comparison's other two modes: the catalogue phase's cut sonar
+# job pooled and compared through the classification metric set, and the
+# feasibility study's energy pair (the 10-layer FCN, dim 2,354, the tuned
+# arm with diagonal preconditioning: K1's preconditioned route) cut to
+# CATALOG_CUT through the loop, pooled and compared value by value
+CLASSIF_METRICS = ['lppd', 'acc', 'step_size_mean', 'L_mean']
+FEAS_STAGE = ('feasibility', '^feas_(mclmc|tuned)_energy$')
+FEAS_JOBS = ['feas_mclmc_energy', 'feas_tuned_energy']
+FEAS_METRICS = ['lppd', 'rmse', 'cal_error', 'coverage_0.9',
+                'step_size_mean', 'L_mean']
 DATASET_SETS = ('airfoil', 'concrete', 'energy', 'yacht', 'bikesharing',
                 'protein')
 # A real preemption: this script run again with --preempt-worker ROOT runs
@@ -3220,6 +3238,130 @@ Step by step: each card step is held against the same step taken on
         drill_s = self._queue_drill(tq)
         self._queue_dataset(tq)
         self.timings['catalog_queue']['drill_s'] = drill_s
+        self.timings['catalog_queue']['classif_s'] = self._queue_classif()
+        self._queue_feasibility(tq)
+
+    def _compare(self, study: str, port_csv: Path):
+        """``torch_compare_study.py STUDY`` on ``port_csv``: the process
+        and its comparison (None if it wrote none)."""
+        import pandas as pd
+
+        out = RESULTS / f'queue_compare_{study}.csv'
+        out.unlink(missing_ok=True)
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / 'experiments' /
+                                 'torch_compare_study.py'), study,
+             '--port', str(port_csv), '--out', str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            print(textwrap.indent(proc.stderr[-3000:], '    '))
+        return proc, (pd.read_csv(out) if out.exists() else None)
+
+    def _queue_classif(self) -> float:
+        """The catalogue phase's cut ``tabular_classif/sonar_mclmc_r1``
+        pooled and compared through the classification metric set: its
+        seconds."""
+        import numpy as np
+
+        t0 = time.perf_counter()
+        aggr = QUEUE_AGGR / 'aggr_tabular_classif.csv'
+        pool = subprocess.run(
+            [sys.executable, str(ROOT / 'experiments' / 'pool_results.py'),
+             str(CATALOG_RESULTS / 'tabular_classif'), '-o', str(aggr)],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        proc, table = self._compare('tabular_classif', aggr)
+        seconds = time.perf_counter() - t0
+        last = (proc.stdout.strip().splitlines() or [''])[-1]
+        self.check(pool.returncode == 0 and proc.returncode == 0
+                   and table is not None
+                   and table['metric'].tolist() == CLASSIF_METRICS
+                   and set(table['experiment_name']) == {'sonar_mclmc_r1'}
+                   and bool(np.isfinite(table['port']).all())
+                   and (table['jax_n'] == 5).all()
+                   and re.fullmatch(r'\d of 4 outside their 95 % intervals '
+                                    r'\(0\.2 expected by chance\)', last)
+                   is not None,
+                   f'the cut sonar job pooled (exit {pool.returncode}) and '
+                   f'compared (exit {proc.returncode}) through '
+                   f'{None if table is None else table["metric"].tolist()} '
+                   f'(want {CLASSIF_METRICS}), every value finite, five JAX '
+                   f'seeds an interval: {last!r}, {seconds:.1f} s')
+        return seconds
+
+    def _queue_feasibility(self, tq):
+        """The feasibility study's energy pair, cut, through the loop,
+        pooled and compared value by value; K1 (preconditioned too) and K3
+        at its shape."""
+        import dataclasses
+
+        import numpy as np
+
+        cat = self._experiments('torch_run_catalog')
+        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
+                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
+                         runner=[sys.executable,
+                                 str(Path(__file__).resolve()),
+                                 '--catalog-cut-worker'])
+        t0 = time.perf_counter()
+        rc = queue.run([tq.Stage(*FEAS_STAGE)])
+        wall = time.perf_counter() - t0
+        (result,) = queue.results
+        records = {r['job']: r for r in map(json.loads, (
+            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())
+            if r['job'] in FEAS_JOBS}
+        self.check(rc == 0 and result.exit_codes == [0]
+                   and sorted(records) == sorted(FEAS_JOBS)
+                   and all(r['ok'] for r in records.values()),
+                   f'the feasibility study\'s energy pair through the loop: '
+                   f'runner exit codes {result.exit_codes}, '
+                   f'{sum(r["ok"] for r in records.values())} of '
+                   f'{len(FEAS_JOBS)} ok in {wall:.1f} s')
+        if result.exit_codes != [0]:
+            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
+        by_key = {j.name: j for j in cat.build_jobs()}
+        per_job = {}
+        for name in FEAS_JOBS:
+            job = dataclasses.replace(by_key[name], overrides={
+                **by_key[name].overrides, **CATALOG_CUT})
+            scfg = job.config(QUEUE_RESULTS).training.sampler
+            dim = sum(a.size for a in np.load(
+                job.exp_dir(QUEUE_RESULTS) / 'warmstart' /
+                'params_0.npz').values())
+            steps = mclmc_steps(scfg)
+            launches = records[name]['launches']
+            per_job[name] = {'shape': [scfg.n_chains, dim], 'steps': steps,
+                             'wall_s': records[name]['wall_s'],
+                             'launches': launches}
+            self.check(launches == {'isokinetic_momentum': 3 * steps,
+                                    'partial_refresh': steps}
+                       and (scfg.n_chains, dim) == FEAS_SHAPE,
+                       f'{name}: ({scfg.n_chains}, {dim}) (want '
+                       f'{FEAS_SHAPE}), {steps} steps, K1/K3 '
+                       f'{launches["isokinetic_momentum"]}/'
+                       f'{launches["partial_refresh"]} (3 and 1 a step), '
+                       f'{records[name]["wall_s"]} s')
+        for k in ('isokinetic_momentum', 'partial_refresh'):
+            self.path_launches['catalog_queue'][k] += sum(
+                r['launches'][k] for r in records.values())
+        proc, table = self._compare(
+            'feasibility', QUEUE_AGGR / 'aggr_feasibility.csv')
+        last = (proc.stdout.strip().splitlines() or [''])[-1]
+        verdicts = set() if table is None else set(table['verdict'])
+        self.check(proc.returncode == 0 and table is not None
+                   and sorted(set(table['experiment_name'])) == FEAS_JOBS
+                   and table[table['experiment_name'] == FEAS_JOBS[0]][
+                       'metric'].tolist() == FEAS_METRICS
+                   and verdicts <= {'both finite', 'both fail', 'differ'}
+                   and re.fullmatch(r'lppd finiteness agrees in \d of 2 '
+                                    r'jobs; \d+ of 12 values differ.*', last)
+                   is not None,
+                   f'torch_compare_study.py feasibility (exit '
+                   f'{proc.returncode}), value by value through '
+                   f'{FEAS_METRICS}: verdicts {sorted(verdicts)}, {last!r}')
+        self._k1_check(*FEAS_SHAPE)
+        self._k3_check(*FEAS_SHAPE, self.torch.Generator().manual_seed(13))
+        self.timings['catalog_queue']['feasibility'] = {'wall_s': wall,
+                                                        'jobs': per_job}
 
     def _queue_drill(self, tq) -> list:
         """The loop's fault drill and STOP (``catalog_queue``'s first
@@ -3353,14 +3495,8 @@ Step by step: each card step is held against the same step taken on
         self.check(sorted(pooled['experiment_name']) == sorted(names),
                    f'pooled into {QUEUE_AGGR / "aggr_dataset.csv"}: a row '
                    f'for each set ({len(pooled)} rows)')
-        compared = RESULTS / 'queue_compare.csv'
-        proc = subprocess.run(
-            [sys.executable, str(ROOT / 'experiments' /
-                                 'torch_compare_study.py'), 'dataset',
-             '--port', str(QUEUE_AGGR / 'aggr_dataset.csv'),
-             '--out', str(compared)],
-            cwd=ROOT, capture_output=True, text=True, timeout=120)
-        table = pd.read_csv(compared) if compared.exists() else None
+        proc, table = self._compare('dataset',
+                                    QUEUE_AGGR / 'aggr_dataset.csv')
         self.check(proc.returncode == 0 and table is not None
                    and len(table) == 6 * len(names)
                    and bool(np.isfinite(table['port']).all())
@@ -3371,8 +3507,6 @@ Step by step: each card step is held against the same step taken on
                    f'every compared metric finite (at cut step counts the '
                    f'verdicts mean nothing: '
                    f'{proc.stdout.strip().splitlines()[-1:]})')
-        if proc.returncode != 0:
-            print(textwrap.indent(proc.stderr[-3000:], '    '))
 
         # (c) K1 and K3 against their plain versions at the jobs' shapes
         gen = self.torch.Generator().manual_seed(11)
@@ -4583,8 +4717,10 @@ def main() -> int:
                     'processes, strikes, skip, hang', smoke.catalog_fault)
         smoke.phase('study queue: torch_catalog_queue.py relaunching a '
                     'device-side assert, STOP; the dataset study\'s six r1 '
-                    'jobs cut, pooled and compared; K1/K3 at their shapes',
-                    smoke.catalog_queue)
+                    'jobs cut, pooled and compared; K1/K3 at their shapes; '
+                    'sonar compared through the classification metrics; '
+                    'feasibility\'s energy pair cut, compared value by '
+                    'value', smoke.catalog_queue)
         smoke.phase('preemption: BDETrainer with checkpoint_sampling killed '
                     'with SIGKILL and resumed bit for bit; profile: true',
                     smoke.preemption)

@@ -17,7 +17,9 @@ Phase 1+2 (ratio 0.8/0.1 of the budget): one kernel step per iteration.
     branch): state reverted, ε cap shrunk by 0.8, the sample excluded.
 
 Phase 3 (ratio 0.1): run the tuned kernel, estimate the ESS of the trace
-by FFT autocorrelation, refine ``L = 0.4 · ε · n_steps / ESS``. A
+by FFT autocorrelation, refine ``L = 0.4 · ε · n_steps / ESS``. Above
+``ess_params_limit`` coordinates each chain's ESS is taken over a random
+subset of its own, as the JAX tuner's vmapped permutation gives. A
 coordinate whose trace stays constant (with diagonal preconditioning, one
 whose phase-2 variance rounded to 0 and was clamped to 1e-30 moves by
 less than a float32 unit) gets the ESS the JAX package's compiled tuner
@@ -158,9 +160,12 @@ def _phase3_refine_L(kernel, cfg: TuningConfig, state, params,
                           params.sqrt_diag_cov)
         trace[i] = state.position
     if dim > cfg.ess_params_limit:
-        coords = torch.randperm(dim, generator=generator)[
-            :cfg.ess_params_limit].to(trace.device)
-        trace = trace[..., coords]
+        # one subset a chain, each from its own stretch of the stream, as
+        # the JAX tuner draws a permutation under each chain's key
+        coords = torch.stack([
+            torch.randperm(dim, generator=generator)[:cfg.ess_params_limit]
+            for _ in range(n_chains)]).to(trace.device)
+        trace = torch.gather(trace, 2, coords.expand(num_steps, -1, -1))
     if num_steps > cfg.ess_samples_limit:
         idx = torch.linspace(0, num_steps - 1, cfg.ess_samples_limit).long()
         trace = trace[idx.to(trace.device)]

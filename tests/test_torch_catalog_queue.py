@@ -20,6 +20,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pandas as pd
 import pytest
 from _torch_parity import one_torch_thread  # noqa: F401
@@ -241,11 +242,16 @@ def test_the_scripts_import_neither_torch_nor_jax():
 
 
 # ------------------------------------------------------------ comparison
+# the metrics a regression study (dataset) compares, in their order
+SIX = ['lppd', 'rmse', 'cal_error', 'coverage_0.9', 'step_size_mean',
+       'L_mean']
+
+
 def _study(tmp_path):
     """A JAX study of two groups x 3 seeds and a port study of one seed
     each: airfoil's lppd inside its interval, its rmse outside, concrete's
     cal_error not finite."""
-    metrics = list(tc.METRICS)
+    metrics = SIX
     jax_rows = []
     for group, base in (('uci_mclmc_airfoil', 1.0), ('uci_mclmc_concrete',
                                                      10.0)):
@@ -274,7 +280,7 @@ def test_the_prediction_interval_is_m_plus_minus_4_97_s():
 def test_the_comparison_finds_inside_and_outside(tmp_path):
     jax_csv, port_csv = _study(tmp_path)
     df = tc.compare(pd.read_csv(port_csv), pd.read_csv(jax_csv))
-    assert len(df) == 2 * len(tc.METRICS)
+    assert len(df) == 2 * len(SIX)
     verdict = df.set_index(['experiment_name', 'metric'])['verdict']
     assert verdict['uci_mclmc_airfoil_r1', 'lppd'] == 'inside'     # 5.9
     assert verdict['uci_mclmc_airfoil_r1', 'rmse'] == 'outside'    # 7.0
@@ -307,14 +313,90 @@ def test_a_missing_jax_column_is_the_ports_fault(tmp_path):
         tc.compare(port, pd.read_csv(jax_csv))
 
 
-def test_the_jax_study_has_every_compared_column():
-    jax = pd.read_csv(ROOT / 'aggr_results' / 'aggr_dataset.csv')
-    assert set(tc.METRICS) <= set(jax.columns)
-    groups = jax['experiment_name'].map(tc.group_of).value_counts()
-    assert sorted(groups.index) == sorted(
-        f'uci_mclmc_{d}' for d in ('airfoil', 'concrete', 'energy', 'yacht',
-                                   'bikesharing', 'protein'))
-    assert set(groups) == {3}
+@pytest.mark.parametrize('study,metrics,groups,seeds', [
+    ('dataset', SIX,
+     [f'uci_mclmc_{d}' for d in ('airfoil', 'concrete', 'energy', 'yacht',
+                                 'bikesharing', 'protein')], 3),
+    ('tabular_classif', ['lppd', 'acc', 'step_size_mean', 'L_mean'],
+     [f'{d}_mclmc' for d in ('sonar', 'heart', 'glass', 'australian',
+                             'ionosphere', 'wine_red', 'wine_white')], 5)])
+def test_the_jax_study_has_every_compared_column(study, metrics, groups,
+                                                 seeds):
+    """The metrics compared are the JAX study's own: ``dataset`` its six,
+    ``tabular_classif`` LPPD, accuracy, ε and L (no RMSE, calibration or
+    coverage columns there)."""
+    jax = pd.read_csv(ROOT / 'aggr_results' / f'aggr_{study}.csv')
+    assert tc.metrics_of(jax) == metrics
+    assert not tc.one_run_a_job(jax)
+    counts = jax['experiment_name'].map(tc.group_of).value_counts()
+    assert sorted(counts.index) == sorted(groups)
+    assert set(counts) == {seeds}
+
+
+def test_the_five_seed_interval_is_m_plus_minus_2_776_s_sqrt_1_2():
+    values = [0.0, 1.0, 2.0, 3.0, 4.0]
+    m, s, lo, hi = tc.prediction_interval(values)
+    assert (m, s) == (2.0, pytest.approx(np.std(values, ddof=1)))
+    half = 2.7764451051977934 * s * math.sqrt(1.2)
+    assert (lo, hi) == (pytest.approx(m - half), pytest.approx(m + half))
+
+
+def test_a_classification_port_without_acc_raises():
+    jax = pd.read_csv(ROOT / 'aggr_results' / 'aggr_tabular_classif.csv')
+    df = tc.compare(jax, jax)
+    assert len(df) == 35 * 4 and set(df['verdict']) == {'inside'}
+    with pytest.raises(KeyError, match='acc'):
+        tc.compare(jax.drop(columns=['acc']), jax)
+
+
+def test_the_feasibility_values_compare_one_by_one(tmp_path, capsys):
+    """``feasibility`` has one run a job: each value is held against the
+    JAX row of its name. A hand-made port study: airfoil's naive arm fails
+    as JAX's (NaN LPPD, ε 0), its tuned arm is finite where JAX's LPPD is
+    NaN, bikesharing's naive arm finite with JAX's at twice its values."""
+    jax_csv = ROOT / 'aggr_results' / 'aggr_feasibility.csv'
+    jax = pd.read_csv(jax_csv)
+    assert tc.one_run_a_job(jax) and len(jax) == 14
+    assert tc.metrics_of(jax) == SIX
+    ref = jax.set_index('experiment_name')
+    port = pd.DataFrame([
+        {'experiment_name': 'feas_mclmc_airfoil',
+         **{m: ref.at['feas_mclmc_airfoil', m] for m in SIX}},
+        {'experiment_name': 'feas_tuned_airfoil',
+         **{m: 0.5 for m in SIX}},
+        {'experiment_name': 'feas_mclmc_bikesharing',
+         **{m: 2.0 * ref.at['feas_mclmc_bikesharing', m] for m in SIX}},
+        {'experiment_name': 'feas_f32_protein', **{m: 1.0 for m in SIX}}])
+    df = tc.compare_values(port, jax)
+    verdict = df.set_index(['experiment_name', 'metric'])['verdict']
+    ratio = df.set_index(['experiment_name', 'metric'])['ratio']
+    assert len(df) == 3 * len(SIX)     # feas_f32_protein has no JAX row
+    assert verdict['feas_mclmc_airfoil', 'lppd'] == 'both fail'
+    assert verdict['feas_mclmc_airfoil', 'step_size_mean'] == 'both fail'
+    assert verdict['feas_tuned_airfoil', 'lppd'] == 'differ'
+    assert verdict['feas_tuned_airfoil', 'step_size_mean'] == 'differ'
+    assert (verdict['feas_mclmc_bikesharing'] == 'both finite').all()
+    assert ratio['feas_mclmc_bikesharing', 'lppd'] == pytest.approx(2.0)
+    assert ratio['feas_mclmc_bikesharing', 'L_mean'] == pytest.approx(2.0)
+    assert math.isnan(ratio['feas_tuned_airfoil', 'lppd'])
+    port_csv = tmp_path / 'port.csv'
+    port.to_csv(port_csv, index=False)
+    assert tc.main(['feasibility', '--port', str(port_csv)]) == 0
+    last = capsys.readouterr().out.splitlines()[-1]
+    assert last == ('lppd finiteness agrees in 2 of 3 jobs; 4 of 18 values '
+                    'differ (lppd 1, rmse 1, step_size_mean 1, L_mean 1)')
+
+
+def test_the_dataset_comparison_is_unchanged():
+    """``dataset`` keeps its six metrics and the committed verdicts."""
+    here = ROOT / 'aggr_results_torch' / 'tpu_arithmetic'
+    df = tc.compare(pd.read_csv(here / 'aggr_dataset.csv'),
+                    pd.read_csv(ROOT / 'aggr_results' / 'aggr_dataset.csv'))
+    committed = pd.read_csv(here / 'compare_dataset.csv')
+    assert list(df['metric'].unique()) == SIX
+    assert df['verdict'].tolist() == committed['verdict'].tolist()
+    assert df['experiment_name'].tolist() == \
+        committed['experiment_name'].tolist()
 
 
 def test_jobs_side_by_side(tmp_path, stub):

@@ -243,7 +243,8 @@ def test_port_imports_no_jax_and_no_mile_tpu():
     assert ROOT / 'experiments' / 'torch_symmetric_splitting.py' in files
     for script in ('torch_run_catalog.py', 'torch_dtype_ab_widefcn.py',
                    'torch_time_warmup.py', 'torch_profile_nuts.py',
-                   'torch_catalog_queue.py', 'torch_compare_study.py'):
+                   'torch_catalog_queue.py', 'torch_compare_study.py',
+                   'torch_tune_members.py'):
         assert ROOT / 'experiments' / script in files
     assert PACKAGE / 'mcmc' / 'split_hmc.py' in files
     assert PACKAGE / 'utils' / 'card.py' in files

@@ -247,3 +247,45 @@ def test_profile_nuts_runs(monkeypatch, capsys):
     assert re.search(r'NUTS run: 2 draws x 12 chains in [0-9.]+s \(incl. '
                      r'3-step window adaptation\)', out)
     assert re.search(rf'acceptance {NUMBER}, divergent', out)
+
+
+def test_tune_members_runs_the_trainers_tuner(tmp_path, capsys):
+    """``torch_tune_members.py`` on a 3-member warm start of the airfoil
+    config, 50 tuner steps: one JSON line whose ε and L are the port's
+    tuner's on the same members with the run's sample stream, bit for bit;
+    without ``--device cpu`` and a GPU it raises."""
+    import torch_tune_members
+
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.mcmc.adaptation.mclmc_tuning import mclmc_tune
+    from mile_tpu_torch.train.sampling import tuning_config
+    from mile_tpu_torch.train.trainer import BDETrainer
+    from mile_tpu_torch.utils.keys import experiment_keys
+
+    config = 'configs/illustrative_airfoil_mclmc.yaml'
+    (cfg,) = Config.from_file(ROOT / config)
+    cfg = cfg.replace(**{'saving_dir': str(tmp_path), 'experiment_name': 'ws',
+                         'rng': 2, 'training.warmstart.max_epochs': 2,
+                         'training.sampler.n_chains': 3,
+                         'training.sampler.warmup_steps': 50})
+    trainer = BDETrainer(cfg, device='cpu')
+    members = trainer.train_warmstart()
+    x, y = trainer.loader.arrays('train')
+    _, want = mclmc_tune(trainer.bayes.logdensity_and_grad_fn(x, y),
+                         members.clone(), experiment_keys(2).sample,
+                         tuning_config(cfg.training.sampler))
+    args = ['--config', str(ROOT / config), '--members', str(trainer.exp_dir),
+            '--steps', '50', '--set', 'rng=2', '--set',
+            'training.sampler.n_chains=3']
+    assert torch_tune_members.main([*args, '--device', 'cpu']) == 0
+    (line,) = capsys.readouterr().out.splitlines()
+    record = json.loads(line)
+    assert record['dim'] == 674 and record['phase3_draws'] == 5
+    assert record['tuner_arithmetic'] == 'float32'
+    assert record['step_size'] == want.step_size.double().tolist()
+    assert record['L'] == want.L.double().tolist()
+    assert record['L_mean'] == pytest.approx(want.L.double().mean().item())
+    assert len(record['ess_harmonic']) == 3
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            torch_tune_members.main(args)
