@@ -107,10 +107,16 @@ through the classification metric set (LPPD, accuracy, ε, L), and the
 feasibility study's energy pair (``FEAS_STAGE``, the 10-layer FCN at
 ``FEAS_SHAPE``, the tuned arm preconditioned) cut, through the loop,
 pooled and compared value by value, with K1 and K3 against their plain
-versions at its shape. A real preemption: ``BDETrainer`` with
-``checkpoint_sampling`` in a worker (``--preempt-worker ROOT``) killed with
-SIGKILL once a chunk is on disk and resumed here bit for bit; and one
-trainer run with ``profile: true`` whose trace names both kernels.
+versions at its shape; and one cut job of each mixed study's MCLMC or DE
+half (``MIXED_STAGES``: the deep-8 FCN on energy, the DE arm at width 48,
+protein at 5,000 rows) through the loop, pooled and compared with both of
+the script's tables (its predictive metrics and the chains' diagnostics),
+K1 and K3 against their plain versions at ``MIXED_SHAPES``. Every
+comparison also checks the diagnostics table. A real preemption:
+``BDETrainer`` with ``checkpoint_sampling`` in a worker (``--preempt-worker
+ROOT``) killed with SIGKILL once a chunk is on disk and resumed here bit
+for bit; and one trainer run with ``profile: true`` whose trace names both
+kernels.
 
 The TPU's arithmetic (``'bfloat16'``: one bfloat16 pass, XLA's default
 on a TPU, where the JAX package's studies ran): the card's route (a bf16
@@ -225,8 +231,8 @@ PARTITION_CUT = CUT
 # config's full width: 10 chains, dim 61,706, datapoint_limit 60,000 and
 # train_split 0.8 (48,000 training images), likelihood chunks of 8192. Cut
 # in memory: the step counts (one warm-start epoch; 50 tuner steps, whose
-# last tenth sets L from an effective sample size; 40 sampling steps kept
-# every 10th, 4 draws a chain), and valid/test splits of 0.1/0.1 where the
+# last tenth sets L from an effective sample size; 20 sampling steps kept
+# every 10th, 2 draws a chain), and valid/test splits of 0.1/0.1 where the
 # config has 0.2/0.0, so that the evaluation has test images.
 IMAGE_CONFIG = ROOT / 'configs' / 'additional_tasks' / 'lenet_fmnist.yaml'
 IMAGE_RESULTS = ROOT / 'results' / 'chip_smoke_lenet'
@@ -236,7 +242,7 @@ IMAGE_SHAPE = (10, 61_706)
 IMAGE_TRAIN = 48_000
 IMAGE_CUT = {'training.warmstart.max_epochs': 1,
              'training.sampler.warmup_steps': 50,
-             'training.sampler.n_samples': 40,
+             'training.sampler.n_samples': 20,
              'training.sampler.n_thinning': 10,
              'data.valid_split': 0.1, 'data.test_split': 0.1}
 # The image and text paths' checks. One step through the kernels against
@@ -264,8 +270,8 @@ GRAD_RTOL, GRAD_GTOL = 1e-5, 1e-4
 # likelihood chunks (the config sets none; unchunked, the attention weights
 # alone, 8 x 70 x 70 floats per chain and sequence, take 44 GB a tensor),
 # and the step counts (one warm-start epoch of 200; 30 tuner steps of
-# 50,000; 20 sampling steps thinned by 5, of 10,000 by 100: 4 draws a
-# chain; an MCLMC step takes about 2.6 s, 50 and 40 steps took 4 minutes).
+# 50,000; 10 sampling steps thinned by 5, of 10,000 by 100: 2 draws a
+# chain; an MCLMC step takes about 2.3 s, 50 and 40 steps took 4 minutes).
 TEXT_CONFIG = ROOT / 'configs' / 'additional_tasks' / 'sequential_mod.yaml'
 TEXT_RESULTS = ROOT / 'results' / 'chip_smoke_text'
 TEXT_CORPUS = ROOT / 'results' / 'chip_smoke_imdb.csv'
@@ -287,7 +293,7 @@ TEXT_CUT = {'data.source': 'local',
             'training.sampler.likelihood_chunk_size': 4096,
             'training.warmstart.max_epochs': 1,
             'training.sampler.warmup_steps': 30,
-            'training.sampler.n_samples': 20,
+            'training.sampler.n_samples': 10,
             'training.sampler.n_thinning': 5}
 # a batch of training sequences with pads, and one all pads: the card's
 # forward against the CPU's in float32, within TEXT_PAD_TOL
@@ -295,12 +301,12 @@ TEXT_PAD_TOL = 1e-5
 
 # The NUTS path: the config's 12 chains, FCN [16,16,16,2] and tree depth 10
 # (up to 1023 leapfrog steps a draw); only the step counts are cut, so that
-# at that worst-case depth the phase stays within about 1.5 minutes
+# at that worst-case depth the phase stays within about a minute
 NUTS_CONFIG = ROOT / 'configs' / 'illustrative_airfoil_nuts.yaml'
 NUTS_RESULTS = ROOT / 'results' / 'chip_smoke_nuts'
 NUTS_CUT = {'training.warmstart.max_epochs': 20,
             'training.sampler.warmup_steps': 10,
-            'training.sampler.n_samples': 4}
+            'training.sampler.n_samples': 2}
 # One NUTS step on the card against the same step on the CPU, from the
 # card's state with the same draws, at tree depth 5 (31 leapfrog steps),
 # the tuned step sizes, and two chains' step sizes raised 30 and 1000
@@ -471,6 +477,18 @@ FEAS_METRICS = ['lppd', 'rmse', 'cal_error', 'coverage_0.9',
                 'step_size_mean', 'L_mean']
 DATASET_SETS = ('airfoil', 'concrete', 'energy', 'yacht', 'bikesharing',
                 'protein')
+# Then one cut job of each mixed study's MCLMC or DE half through the loop
+# (the deep-8 FCN on energy, the DE arm on bikesharing at width 48, protein
+# at 5,000 rows) with their K1/K3 shapes, pooled and compared with the
+# chains' diagnostics (the table that every comparison here also checks)
+MIXED_STAGES = (('diagnostics', '^diag_mclmc_energy_r1$'),
+                ('complexity', '^bike_de_48x48x48_r1$'),
+                ('datasize', '^protein_mclmc_n5000_r1$'))
+MIXED_SHAPES = {'diag_mclmc_energy_r1': (12, 450),
+                'bike_de_48x48x48_r1': (12, 5_426),
+                'protein_mclmc_n5000_r1': (12, 738)}
+DIAGNOSTICS = ['mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
+               'fs_ess', 'fs_split_rhat']
 # A real preemption: this script run again with --preempt-worker ROOT runs
 # BDETrainer on the main path's config at CUT with checkpoint_sampling and
 # 600 sampling steps in chunks of PREEMPT_CHUNK_KEPT kept draws (the
@@ -3233,17 +3251,28 @@ Step by step: each card step is held against the same step taken on
         exit 0, one pooled row each, every compared metric finite in
         ``torch_compare_study.py``'s table, K1 and K3 launched 3 and 1
         times per MCLMC step of each job at DATASET_SHAPES; and K1 and K3
-        against their plain versions at those shapes."""
+        against their plain versions at those shapes. Then the cut sonar
+        job's comparison, the feasibility energy pair's and one cut job
+        of each mixed study's (MIXED_STAGES), each comparison with its
+        chain diagnostics."""
         tq = self._experiments('torch_catalog_queue')
         drill_s = self._queue_drill(tq)
         self._queue_dataset(tq)
         self.timings['catalog_queue']['drill_s'] = drill_s
         self.timings['catalog_queue']['classif_s'] = self._queue_classif()
         self._queue_feasibility(tq)
+        self.timings['catalog_queue']['mixed'] = self._queue_mixed(tq)
 
-    def _compare(self, study: str, port_csv: Path):
-        """``torch_compare_study.py STUDY`` on ``port_csv``: the process
-        and its comparison (None if it wrote none)."""
+    def _compare(self, study: str, port_csv: Path, finite: bool = True):
+        """``torch_compare_study.py STUDY`` on ``port_csv``: the process,
+        its predictive table (None if it wrote none) and that table's
+        count line. Its chain diagnostics are checked here: every one of
+        DIAGNOSTICS for each job, its count line, and with ``finite`` the
+        ESS and split R-hat values finite (not the variances, NaN when one
+        chain's tuning collapsed, as in some of the studies' own rows; and
+        not where a cut run's steps collapse on most chains, as in the
+        10-layer feasibility nets)."""
+        import numpy as np
         import pandas as pd
 
         out = RESULTS / f'queue_compare_{study}.csv'
@@ -3255,7 +3284,31 @@ Step by step: each card step is held against the same step taken on
             cwd=ROOT, capture_output=True, text=True, timeout=120)
         if proc.returncode != 0:
             print(textwrap.indent(proc.stderr[-3000:], '    '))
-        return proc, (pd.read_csv(out) if out.exists() else None)
+        df = pd.read_csv(out) if out.exists() else None
+        lines = proc.stdout.strip().splitlines()
+        head = (lines.index('Chain diagnostics')
+                if 'Chain diagnostics' in lines else len(lines))
+        last = ([line for line in lines[:head] if line] or [''])[-1]
+        diag_last = lines[-1] if head < len(lines) else ''
+        diag = None if df is None else df[df['table'] == 'diagnostics']
+        count = (r'\d+ of \d+ values differ.*' if 'values differ' in last
+                 else r'\d+ of \d+ outside their 95 % intervals \(.*\)')
+        self.check(proc.returncode == 0 and diag is not None
+                   and sorted(set(diag['metric'])) == sorted(DIAGNOSTICS)
+                   and set(diag['experiment_name'])
+                   == set(df[df['table'] == 'predictive']['experiment_name'])
+                   and (not finite or bool(np.isfinite(diag['port'][
+                       ~diag['metric'].isin(['mean_bcv', 'mean_wcv'])]).all()))
+                   and re.fullmatch(count, diag_last) is not None,
+                   f'torch_compare_study.py {study} (exit '
+                   f'{proc.returncode}): the chain diagnostics table, '
+                   f'{None if diag is None else sorted(set(diag["metric"]))}'
+                   f' (want {DIAGNOSTICS}), ESS and R-hat finite'
+                   f'{"" if finite else " (not held)"}: {diag_last!r}')
+        table = (None if df is None else
+                 df[df['table'] == 'predictive'].drop(columns='table')
+                 .reset_index(drop=True))
+        return proc, table, last
 
     def _queue_classif(self) -> float:
         """The catalogue phase's cut ``tabular_classif/sonar_mclmc_r1``
@@ -3269,9 +3322,8 @@ Step by step: each card step is held against the same step taken on
             [sys.executable, str(ROOT / 'experiments' / 'pool_results.py'),
              str(CATALOG_RESULTS / 'tabular_classif'), '-o', str(aggr)],
             cwd=ROOT, capture_output=True, text=True, timeout=120)
-        proc, table = self._compare('tabular_classif', aggr)
+        proc, table, last = self._compare('tabular_classif', aggr)
         seconds = time.perf_counter() - t0
-        last = (proc.stdout.strip().splitlines() or [''])[-1]
         self.check(pool.returncode == 0 and proc.returncode == 0
                    and table is not None
                    and table['metric'].tolist() == CLASSIF_METRICS
@@ -3343,9 +3395,8 @@ Step by step: each card step is held against the same step taken on
         for k in ('isokinetic_momentum', 'partial_refresh'):
             self.path_launches['catalog_queue'][k] += sum(
                 r['launches'][k] for r in records.values())
-        proc, table = self._compare(
-            'feasibility', QUEUE_AGGR / 'aggr_feasibility.csv')
-        last = (proc.stdout.strip().splitlines() or [''])[-1]
+        proc, table, last = self._compare(
+            'feasibility', QUEUE_AGGR / 'aggr_feasibility.csv', finite=False)
         verdicts = set() if table is None else set(table['verdict'])
         self.check(proc.returncode == 0 and table is not None
                    and sorted(set(table['experiment_name'])) == FEAS_JOBS
@@ -3362,6 +3413,82 @@ Step by step: each card step is held against the same step taken on
         self._k3_check(*FEAS_SHAPE, self.torch.Generator().manual_seed(13))
         self.timings['catalog_queue']['feasibility'] = {'wall_s': wall,
                                                         'jobs': per_job}
+
+    def _queue_mixed(self, tq) -> dict:
+        """One cut job of each mixed study's MCLMC or DE half
+        (MIXED_STAGES) through the loop, one stage each: every job ok, K1
+        and K3 launched 3 and 1 times a step at MIXED_SHAPES, each study
+        pooled and compared with both tables of
+        ``torch_compare_study.py``; K1 and K3 against their plain versions
+        at those shapes. Returns the wall time and each job's record."""
+        import dataclasses
+
+        import numpy as np
+
+        cat = self._experiments('torch_run_catalog')
+        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
+                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
+                         runner=[sys.executable,
+                                 str(Path(__file__).resolve()),
+                                 '--catalog-cut-worker'])
+        t0 = time.perf_counter()
+        rc = queue.run([tq.Stage(*stage) for stage in MIXED_STAGES])
+        wall = time.perf_counter() - t0
+        codes = [r.exit_codes for r in queue.results]
+        records = {r['job']: r for r in map(json.loads, (
+            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())
+            if r['job'] in MIXED_SHAPES}
+        self.check(rc == 0 and codes == [[0]] * len(MIXED_STAGES)
+                   and sorted(records) == sorted(MIXED_SHAPES)
+                   and all(r['ok'] for r in records.values()),
+                   f'one cut job of each mixed study through the loop: '
+                   f'runner exit codes {codes}, '
+                   f'{sum(r["ok"] for r in records.values())} of '
+                   f'{len(MIXED_SHAPES)} ok in {wall:.1f} s')
+        if rc != 0:
+            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
+        by_key = {j.name: j for j in cat.build_jobs()}
+        per_job = {}
+        for name, shape in MIXED_SHAPES.items():
+            if name not in records:
+                continue
+            job = dataclasses.replace(by_key[name], overrides={
+                **by_key[name].overrides, **CATALOG_CUT})
+            scfg = job.config(QUEUE_RESULTS).training.sampler
+            dim = sum(a.size for a in np.load(
+                job.exp_dir(QUEUE_RESULTS) / 'warmstart' /
+                'params_0.npz').values())
+            steps = mclmc_steps(scfg)
+            launches = records[name]['launches']
+            per_job[name] = {'shape': [scfg.n_chains, dim], 'steps': steps,
+                             'wall_s': records[name]['wall_s'],
+                             'launches': launches}
+            self.check(launches == {'isokinetic_momentum': 3 * steps,
+                                    'partial_refresh': steps}
+                       and (scfg.n_chains, dim) == shape,
+                       f'{name}: ({scfg.n_chains}, {dim}) (want {shape}), '
+                       f'{steps} steps, K1/K3 '
+                       f'{launches["isokinetic_momentum"]}/'
+                       f'{launches["partial_refresh"]} (3 and 1 a step), '
+                       f'{records[name]["wall_s"]} s')
+            for k in ('isokinetic_momentum', 'partial_refresh'):
+                self.path_launches['catalog_queue'][k] += launches[k]
+        for study, _ in MIXED_STAGES:
+            proc, table, last = self._compare(
+                study, QUEUE_AGGR / f'aggr_{study}.csv')
+            jobs = [n for n in MIXED_SHAPES if by_key[n].study == study]
+            self.check(proc.returncode == 0 and table is not None
+                       and sorted(set(table['experiment_name'])) == jobs
+                       and len(table) == 6 * len(jobs)
+                       and (table['jax_n'] == 3).all(),
+                       f'torch_compare_study.py {study} (exit '
+                       f'{proc.returncode}): {jobs} against three JAX '
+                       f'seeds on six metrics: {last!r}')
+        gen = self.torch.Generator().manual_seed(17)
+        for shape in sorted(set(MIXED_SHAPES.values())):
+            self._k1_check(*shape)
+            self._k3_check(*shape, gen)
+        return {'wall_s': wall, 'jobs': per_job}
 
     def _queue_drill(self, tq) -> list:
         """The loop's fault drill and STOP (``catalog_queue``'s first
@@ -3495,8 +3622,8 @@ Step by step: each card step is held against the same step taken on
         self.check(sorted(pooled['experiment_name']) == sorted(names),
                    f'pooled into {QUEUE_AGGR / "aggr_dataset.csv"}: a row '
                    f'for each set ({len(pooled)} rows)')
-        proc, table = self._compare('dataset',
-                                    QUEUE_AGGR / 'aggr_dataset.csv')
+        proc, table, last = self._compare('dataset',
+                                          QUEUE_AGGR / 'aggr_dataset.csv')
         self.check(proc.returncode == 0 and table is not None
                    and len(table) == 6 * len(names)
                    and bool(np.isfinite(table['port']).all())
@@ -3505,8 +3632,7 @@ Step by step: each card step is held against the same step taken on
                    f'torch_compare_study.py: exit {proc.returncode}, '
                    f'{0 if table is None else len(table)} comparisons, '
                    f'every compared metric finite (at cut step counts the '
-                   f'verdicts mean nothing: '
-                   f'{proc.stdout.strip().splitlines()[-1:]})')
+                   f'verdicts mean nothing: {last!r})')
 
         # (c) K1 and K3 against their plain versions at the jobs' shapes
         gen = self.torch.Generator().manual_seed(11)

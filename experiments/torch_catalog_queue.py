@@ -56,7 +56,12 @@ alone): 7,200 s leaves room for both. The longest job measured, protein
 at seed 1 beside five others, took 1,185 s (``PERF.md``). The
 ``dtype_ab`` (airfoil) and ``feasibility`` jobs run the same 50,000 +
 10,000 steps after the same warm start on the same sets, feasibility's
-through a 10-layer FCN, and get the same figure.
+through a 10-layer FCN, and get the same figure. So do the MCLMC halves
+of ``diagnostics`` (the deep-8 FCN on airfoil, bikesharing and energy),
+``complexity`` (bikesharing at widths 8-48) and ``datasize`` (protein at
+up to 40,000 rows, 36,000 of them training rows: 1,125 batches an
+epoch, more than the ``dataset`` study's 1,001): the same step counts
+after warm starts no longer than protein's, up to about 2,600 s alone.
 
 ``--tpu-arithmetic`` is passed on to every runner: its jobs run at the
 TPU's one bfloat16 pass wherever their precision is None (see the
@@ -89,7 +94,8 @@ COOLOFF_S = 180.0
 DEFAULT_JOB_TIMEOUT_S = 1800.0
 # per-study job timeouts (s); the derivation is in the module docstring
 JOB_TIMEOUT_S = {'dataset': 7200.0, 'dtype_ab': 7200.0,
-                 'feasibility': 7200.0}
+                 'feasibility': 7200.0, 'diagnostics': 7200.0,
+                 'complexity': 7200.0, 'datasize': 7200.0}
 
 
 @dataclasses.dataclass

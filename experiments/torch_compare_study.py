@@ -29,16 +29,36 @@ seeds). For each group and metric:
   the same name, the interval, and ``inside`` or ``outside`` (a value that
   is not finite is outside).
 
-The last line counts the values outside against the count expected by
-chance, 5 % of those compared.
+The table's count line gives the values outside against the count
+expected by chance, 5 % of those compared.
 
 Values (a study with one run a job, such as ``feasibility``: no group has
 two rows, so there is no interval). Each port job with a JAX row of its
 name gets, per metric, ``both finite``, ``both fail`` or ``differ``: a
 value fails when it is not finite, and an ε (``step_size_mean``) also
 when it is below 1e-6, a step that moves no float32 weight. Where both
-are finite the port/JAX ratio is printed. The last line counts the jobs
-whose ``lppd`` finiteness agrees and the values that differ, by metric.
+are finite the port/JAX ratio is printed. The table's count line gives
+the jobs whose ``lppd`` finiteness agrees and the values that differ, by
+metric.
+
+Chain diagnostics. The chains' own statistics are compared the same way,
+in a second table with its own count line (and, in the seeds mode, the
+count by metric): those of ``DIAGNOSTICS`` that the JAX study has with a
+finite value in some row. ``mean_ess``, ``mean_split_rhat``,
+``mean_bcv`` and ``mean_wcv`` are the unweighted means over the rows of
+each job's ``diagnostics.csv`` (one row per leaf of the flat parameter
+vector, ``pool_results.py``); ``fs_ess`` and ``fs_split_rhat`` are the
+evaluation's function-space ESS and split R-hat of the predictions. A
+group whose JAX seeds are all NaN (the DE arm's L, the draws of a run
+whose ε collapsed) has no interval, as in the first table.
+``running_lppd_mean`` is left out: the mean over draws of the running
+LPPD is -inf in both packages' rows whenever a first draw's predictive
+density underflows (12 of the 18 ``dataset`` rows in each package), so it
+reads the first draw and not the chains. A diagnostic the JAX CSV has and
+the port's lacks raises a ``KeyError``, as a metric does.
+
+With ``--out`` both tables go to one CSV, told apart by its ``table``
+column (``predictive`` or ``diagnostics``).
 
 The script reports and gates nothing: it exits 0 whatever the verdicts.
 It imports numpy and pandas only, so it runs anywhere.
@@ -57,6 +77,8 @@ import pandas as pd
 ROOT = Path(__file__).resolve().parent.parent
 METRICS = ('lppd', 'rmse', 'acc', 'cal_error', 'coverage_0.9',
            'step_size_mean', 'L_mean')
+DIAGNOSTICS = ('mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
+               'fs_ess', 'fs_split_rhat')
 SEED = re.compile(r'_r\d+$')
 # Student's t, 0.975 quantile, by degrees of freedom
 T975 = {1: 12.706204736174694, 2: 4.302652729749462, 3: 3.1824463052837078,
@@ -85,10 +107,10 @@ def prediction_interval(values) -> tuple[float, float, float, float]:
     return m, s, m - half, m + half
 
 
-def metrics_of(jax: pd.DataFrame) -> list[str]:
-    """The metrics of ``METRICS`` that the JAX study has with a finite
-    value in some row, in ``METRICS``' order."""
-    return [m for m in METRICS if m in jax.columns
+def metrics_of(jax: pd.DataFrame, candidates=METRICS) -> list[str]:
+    """The metrics of ``candidates`` (``METRICS`` or ``DIAGNOSTICS``) that
+    the JAX study has with a finite value in some row, in their order."""
+    return [m for m in candidates if m in jax.columns
             and np.isfinite(pd.to_numeric(jax[m], errors='coerce')).any()]
 
 
@@ -145,12 +167,13 @@ def fails(metric: str, value: float) -> bool:
                                         and value < EPS_FAILS_BELOW)
 
 
-def compare_values(port: pd.DataFrame, jax: pd.DataFrame) -> pd.DataFrame:
-    """One row per (port job with a JAX row of its name, metric of
-    :func:`metrics_of` the JAX study): both values, the verdict (``both
-    finite``, ``both fail``, ``differ``) and the port/JAX ratio where both
-    are finite."""
-    metrics = metrics_of(jax)
+def compare_values(port: pd.DataFrame, jax: pd.DataFrame,
+                   metrics=None) -> pd.DataFrame:
+    """One row per (port job with a JAX row of its name, metric): both
+    values, the verdict (``both finite``, ``both fail``, ``differ``) and
+    the port/JAX ratio where both are finite; ``metrics`` defaults to
+    :func:`metrics_of` the JAX study."""
+    metrics = metrics_of(jax) if metrics is None else list(metrics)
     _check_columns(port, metrics)
     jax_by_name = jax.set_index('experiment_name')
     rows = []
@@ -181,16 +204,28 @@ def table_values(df: pd.DataFrame) -> str:
     return '\n'.join(lines)
 
 
+def _by_metric(rows: pd.DataFrame, order=None) -> str:
+    """``'metric n, ...'``: the rows' count by metric, in ``order`` (by
+    default in the order the metrics first appear)."""
+    counts = rows['metric'].value_counts(sort=False)
+    if order is not None:
+        counts = counts.reindex([m for m in order if m in counts.index])
+    return ', '.join(f'{m} {n}' for m, n in counts.items())
+
+
 def summary_values(df: pd.DataFrame) -> str:
-    jobs = df['experiment_name'].nunique()
-    lppd = df[df['metric'] == 'lppd']
-    agree = int((lppd['verdict'] != 'differ').sum())
+    """The value mode's count line: the jobs whose ``lppd`` finiteness
+    agrees (when ``lppd`` was compared) and the values that differ."""
     differ = df[df['verdict'] == 'differ']
-    by_metric = ', '.join(f'{m} {n}' for m, n in
-                          differ['metric'].value_counts(sort=False).items())
-    return (f'lppd finiteness agrees in {agree} of {jobs} jobs; '
-            f'{len(differ)} of {len(df)} values differ'
+    by_metric = _by_metric(differ)
+    line = (f'{len(differ)} of {len(df)} values differ'
             + (f' ({by_metric})' if by_metric else ''))
+    lppd = df[df['metric'] == 'lppd']
+    if lppd.empty:
+        return line
+    agree = int((lppd['verdict'] != 'differ').sum())
+    jobs = df['experiment_name'].nunique()
+    return f'lppd finiteness agrees in {agree} of {jobs} jobs; {line}'
 
 
 def table(df: pd.DataFrame) -> str:
@@ -203,11 +238,40 @@ def table(df: pd.DataFrame) -> str:
     return '\n'.join(lines)
 
 
-def summary(df: pd.DataFrame) -> str:
+def summary(df: pd.DataFrame, by_metric: bool = False) -> str:
+    """The seeds mode's count line: the values outside against chance,
+    and with ``by_metric`` the count outside of each metric."""
     compared = int((df['verdict'] != 'no interval').sum())
-    outside = int((df['verdict'] == 'outside').sum())
-    return (f'{outside} of {compared} outside their 95 % intervals '
-            f'({CHANCE * compared:.1f} expected by chance)')
+    outside = df[df['verdict'] == 'outside']
+    counts = (_by_metric(outside, df['metric'].unique()) if by_metric
+              else '')
+    return (f'{len(outside)} of {compared} outside their 95 % intervals '
+            f'({CHANCE * compared:.1f} expected by chance'
+            + (f'; {counts}' if counts else '') + ')')
+
+
+def report(port: pd.DataFrame, jax: pd.DataFrame) -> tuple[pd.DataFrame,
+                                                            list[str]]:
+    """Both tables of a study: (the comparison, its ``table`` column
+    naming ``predictive`` or ``diagnostics`` rows; the printed lines).
+    The diagnostics table is left out when the JAX study has none."""
+    values = one_run_a_job(jax)
+    frames, lines = [], []
+    for name, candidates in (('predictive', METRICS),
+                             ('diagnostics', DIAGNOSTICS)):
+        metrics = metrics_of(jax, candidates)
+        if not metrics:
+            continue
+        if name == 'diagnostics':
+            lines += ['', 'Chain diagnostics', '']
+        if values:
+            df = compare_values(port, jax, metrics)
+            lines += [table_values(df), summary_values(df)]
+        else:
+            df = compare(port, jax, metrics)
+            lines += [table(df), summary(df, by_metric=name == 'diagnostics')]
+        frames.append(df.assign(table=name))
+    return pd.concat(frames, ignore_index=True), lines
 
 
 def main(argv=None) -> int:
@@ -227,14 +291,8 @@ def main(argv=None) -> int:
                        f'aggr_{args.study}.csv')
     jax = pd.read_csv(args.jax or
                       ROOT / 'aggr_results' / f'aggr_{args.study}.csv')
-    if one_run_a_job(jax):
-        df = compare_values(port, jax)
-        print(table_values(df))
-        print(summary_values(df))
-    else:
-        df = compare(port, jax)
-        print(table(df))
-        print(summary(df))
+    df, lines = report(port, jax)
+    print('\n'.join(lines))
     if args.out is not None:
         df.to_csv(args.out, index=False)
     return 0

@@ -6,7 +6,9 @@
 # package's pooled study by torch_compare_study.py.
 #
 #   experiments/torch_study_side_by_side.sh OUT LIMIT_S SPEC [SPEC ...]
-#     SPEC = ROOT:STUDY:REGEX[:tpu]   (tpu: the loop's --tpu-arithmetic)
+#     SPEC = ROOT:STUDY:REGEX[:STUDY:REGEX ...][:tpu]
+#       (each STUDY:REGEX one --stage of the loop, run in turn; tpu: the
+#       loop's --tpu-arithmetic; a REGEX holds no colon)
 #
 # Each loop runs under `timeout LIMIT_S`. OUT receives the card's name
 # and power limit (card.txt), nvidia-smi samples every 30 s (smi.csv),
@@ -27,11 +29,18 @@ nvidia-smi --query-gpu=timestamp,utilization.gpu,power.draw,clocks.sm,memory.use
 SMI=$!
 T0=$(date +%s)
 pids=()
+# SPEC -> "ROOT STUDY REGEX STUDY REGEX ... [tpu]", one word a field
+fields() { IFS=: read -r -a f <<< "$1"; echo "${f[@]}"; }
 for spec in "$@"; do
-  IFS=: read -r root study regex tpu <<< "$spec"
-  flag=""; [ "${tpu:-}" = tpu ] && flag="--tpu-arithmetic"
+  read -r -a f <<< "$(fields "$spec")"
+  root=${f[0]}; flag=""
+  if [ "${f[-1]}" = tpu ]; then flag="--tpu-arithmetic"; unset 'f[-1]'; fi
+  stages=()
+  for ((i = 1; i + 1 < ${#f[@]}; i += 2)); do
+    stages+=(--stage "${f[i]}:${f[i+1]}")
+  done
   timeout -k 20 "$LIMIT" python3 experiments/torch_catalog_queue.py \
-    --root "$root" --stage "$study:$regex" --aggr-dir "$root/aggr" \
+    --root "$root" "${stages[@]}" --aggr-dir "$root/aggr" \
     --cooloff 60 $flag ${DEVICE:+--device $DEVICE} \
     ${RUNNER:+--runner "$RUNNER"} > /dev/null 2>&1 &
   pids+=($!)
@@ -40,8 +49,8 @@ for p in "${pids[@]}"; do wait "$p"; echo "loop $p exit $?" >> "$OUT/loops.txt";
 echo "wall_s $(( $(date +%s) - T0 ))" >> "$OUT/loops.txt"
 kill $SMI 2>/dev/null
 for spec in "$@"; do
-  IFS=: read -r root study regex tpu <<< "$spec"
-  echo "$root:$study"
+  read -r -a f <<< "$(fields "$spec")"
+  for ((i = 1; i + 1 < ${#f[@]}; i += 2)); do echo "${f[0]}:${f[i]}"; done
 done | sort -u | while IFS=: read -r root study; do
   tag=$(basename "$root")
   mkdir -p "$OUT/$tag"

@@ -289,3 +289,20 @@ def test_tune_members_runs_the_trainers_tuner(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             torch_tune_members.main(args)
+
+
+def test_the_kernel_times_script_parses_its_shapes():
+    """``experiments/torch_kernel_times.py``: ``--shapes`` parses to
+    (chains, dim) pairs, and without a GPU it exits 1 before it times
+    anything."""
+    import torch_kernel_times as kt
+
+    assert kt.parse_shapes('12x426,1x674') == [(12, 426), (1, 674)]
+    assert kt.parse_shapes('12x5426,') == [(12, 5426)]
+    if not torch.cuda.is_available():
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / 'experiments' /
+                                 'torch_kernel_times.py'), '--root',
+             str(ROOT), '--shapes', '12x426'],
+            capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 1 and 'no CUDA device' in proc.stderr
