@@ -24,7 +24,7 @@ hold the frozen coordinates of the warm start and of every draw bit for
 bit.
 
 The image path (``configs/additional_tasks/lenet_fmnist.yaml``: LeNet,
-10 chains, dim 61,706, 48,000 training images, likelihood chunks of 8192)
+10 chains, dim 61,706, 24,000 training images, likelihood chunks of 8192)
 runs through ``BDETrainer`` on a synthetic FashionMNIST-shaped archive made
 from a seed, with the step counts cut to ``IMAGE_CUT``: K1 and K3 on the
 resident-cluster route, their launch counts, the metrics, the draws on
@@ -34,9 +34,10 @@ against the CPU's in float32, phase times, the gradient's time and a
 profiled step.
 
 The text path (``configs/additional_tasks/sequential_mod.yaml``: the
-IMDB-width AttentionClassifier, 8 chains, dim 65,248, 35,000 training
+IMDB-width AttentionClassifier, 8 chains, dim 65,248, 7,000 training
 sequences of 70 tokens, likelihood chunks of 4096) runs the same way on a
-synthetic IMDB-sized corpus made from a seed and tokenized by characters,
+synthetic corpus of 10,000 texts made from a seed and tokenized by
+characters,
 with the step counts cut to ``TEXT_CUT``; K1 and K3 on the resident-cluster
 route, and a batch with pads and an all-pad sequence held card against
 CPU.
@@ -98,21 +99,23 @@ The study queue: the relaunch loop (``experiments/torch_catalog_queue.py``)
 over this script as its runner (``--catalog-fault-worker assert``): a real
 device-side assert relaunched after each 70 until the job's second strike
 makes the next launch skip it, the stage pooled, and a STOP file ending a
-later stage with 75 unpooled; then the dataset study's six r1 jobs, cut to
-``CATALOG_CUT``, through the loop (``--catalog-cut-worker``), pooled and
-compared by ``experiments/torch_compare_study.py``, with each job's K1/K3
-launches and the kernels against their plain versions at
-``DATASET_SHAPES``; the catalogue's cut sonar job pooled and compared
-through the classification metric set (LPPD, accuracy, ε, L), and the
-feasibility study's energy pair (``FEAS_STAGE``, the 10-layer FCN at
-``FEAS_SHAPE``, the tuned arm preconditioned) cut, through the loop,
-pooled and compared value by value, with K1 and K3 against their plain
-versions at its shape; and one cut job of each mixed study's MCLMC or DE
-half (``MIXED_STAGES``: the deep-8 FCN on energy, the DE arm at width 48,
-protein at 5,000 rows) through the loop, pooled and compared with both of
-the script's tables (its predictive metrics and the chains' diagnostics),
-K1 and K3 against their plain versions at ``MIXED_SHAPES``. Every
-comparison also checks the diagnostics table. A real preemption:
+later stage with 75 unpooled; then one stage of five studies
+(``QUEUE_STAGE``, one runner process: ``--catalog-cut-worker``) through
+the loop, its jobs cut to ``CATALOG_CUT``: the dataset study's six r1
+jobs, pooled and compared by ``experiments/torch_compare_study.py``, with
+each job's K1/K3 launches and the kernels against their plain versions at
+``DATASET_SHAPES``; the feasibility study's energy pair (the 10-layer FCN
+at ``FEAS_SHAPE``, the tuned arm preconditioned), pooled and compared
+value by value, with K1 and K3 against their plain versions at its shape;
+and one cut job of each mixed study's MCLMC or DE half (the deep-8 FCN on
+energy, the DE arm at width 48, protein at 5,000 rows), pooled and
+compared with both of the script's tables (its predictive metrics and the
+chains' diagnostics), K1 and K3 against their plain versions at
+``MIXED_SHAPES``. The catalogue's cut sonar job is pooled and compared
+through the classification metric set (LPPD, accuracy, ε, L), and its two
+cut ``hyper_params`` jobs through the regression set against the three
+JAX seeds of their grid points. Every comparison also checks the
+diagnostics table. A real preemption:
 ``BDETrainer`` with ``checkpoint_sampling`` in a worker (``--preempt-worker
 ROOT``) killed with SIGKILL once a chunk is on disk and resumed here bit
 for bit; and one trainer run with ``profile: true`` whose trace names both
@@ -123,7 +126,9 @@ on a TPU, where the JAX package's studies ran): the card's route (a bf16
 tensor-core ``bmm`` with a float32 result where torch offers
 ``aten::bmm.dtype``, printed) against the CPU's rounding route, forward
 and both gradients, at the dense shapes of FCN [16, 16, 2] and
-[16, 16, 16, 2] (12 chains, 1052 rows), LeNet's grouped convolution and
+[16, 16, 16, 2] (12 chains, 1052 rows) and of the complexity study's
+[48, 48, 48, 2] on bikesharing (12 chains, 8515 rows), LeNet's grouped
+convolution and
 the text attention's q·kᵀ, each within 2·K·2⁻²⁴·Σ|a||b| of the CPU and
 K·2⁻²⁴·Σ|a||b| of a float64 product of the rounded operands; a witness of
 what torch's ``'medium'`` (the port's old mapping) computes on the card;
@@ -228,22 +233,24 @@ PARTITION_CUT = CUT
 
 # The image path: LeNet on a synthetic archive of FashionMNIST's shape
 # (70,000 28x28 grey images in 10 classes, made from IMAGE_SEED) at the
-# config's full width: 10 chains, dim 61,706, datapoint_limit 60,000 and
-# train_split 0.8 (48,000 training images), likelihood chunks of 8192. Cut
-# in memory: the step counts (one warm-start epoch; 50 tuner steps, whose
-# last tenth sets L from an effective sample size; 20 sampling steps kept
-# every 10th, 2 draws a chain), and valid/test splits of 0.1/0.1 where the
+# config's full width: 10 chains, dim 61,706, train_split 0.8, likelihood
+# chunks of 8192. Cut in memory: the data to datapoint_limit 30,000 (of
+# 60,000: 24,000 training images, 3 likelihood chunks; a step over 48,000
+# took 0.72 s), the step counts (one warm-start epoch; 30 tuner steps, whose
+# last tenth sets L from an effective sample size; 10 sampling steps kept
+# every 5th, 2 draws a chain), and valid/test splits of 0.1/0.1 where the
 # config has 0.2/0.0, so that the evaluation has test images.
 IMAGE_CONFIG = ROOT / 'configs' / 'additional_tasks' / 'lenet_fmnist.yaml'
 IMAGE_RESULTS = ROOT / 'results' / 'chip_smoke_lenet'
 IMAGE_ARCHIVE = ROOT / 'results' / 'chip_smoke_fmnist.npz'
 IMAGE_SEED = 2024
 IMAGE_SHAPE = (10, 61_706)
-IMAGE_TRAIN = 48_000
-IMAGE_CUT = {'training.warmstart.max_epochs': 1,
-             'training.sampler.warmup_steps': 50,
-             'training.sampler.n_samples': 20,
-             'training.sampler.n_thinning': 10,
+IMAGE_TRAIN = 24_000
+IMAGE_CUT = {'data.datapoint_limit': 30_000,
+             'training.warmstart.max_epochs': 1,
+             'training.sampler.warmup_steps': 30,
+             'training.sampler.n_samples': 10,
+             'training.sampler.n_thinning': 5,
              'data.valid_split': 0.1, 'data.test_split': 0.1}
 # The image and text paths' checks. One step through the kernels against
 # the same step through the plain versions, both on the card: positions
@@ -263,21 +270,25 @@ GRAD_RTOL, GRAD_GTOL = 1e-5, 1e-4
 # 64, projection [32], 2 classes: dim 65,248; 8 chains; Normal(0, 0.2)
 # prior; AdamW warm start at batch 256; datapoint_limit 50,000 split
 # 0.7/0.1/0.2). Cut in memory (TEXT_CUT): the data (the config's Hugging
-# Face imdb corpus is not in the repository: a synthetic corpus of IMDB's
-# size written to results/, made from TEXT_SEED), the tokenizer (single_char
+# Face imdb corpus is not in the repository: a synthetic corpus of
+# TEXT_TEXTS texts written to results/, made from TEXT_SEED; IMDB has
+# 50,000, and a step over 35,000 training sequences took 2.25 s), the
+# tokenizer (single_char
 # with context_len 70: custom_bpe needs the `tokenizers` package, and the
 # config's `parameters: {}` would pad to the loader's default 64), the
 # likelihood chunks (the config sets none; unchunked, the attention weights
 # alone, 8 x 70 x 70 floats per chain and sequence, take 44 GB a tensor),
-# and the step counts (one warm-start epoch of 200; 30 tuner steps of
-# 50,000; 10 sampling steps thinned by 5, of 10,000 by 100: 2 draws a
-# chain; an MCLMC step takes about 2.3 s, 50 and 40 steps took 4 minutes).
+# and the step counts (5 warm-start epochs of 200, about as many AdamW
+# steps as one epoch of 35,000; 30 tuner steps of 50,000, the fewest that
+# give a finite L; 10 sampling steps thinned by 5, of 10,000 by 100: 2
+# draws a chain).
 TEXT_CONFIG = ROOT / 'configs' / 'additional_tasks' / 'sequential_mod.yaml'
 TEXT_RESULTS = ROOT / 'results' / 'chip_smoke_text'
 TEXT_CORPUS = ROOT / 'results' / 'chip_smoke_imdb.csv'
 TEXT_SEED = 2025
 TEXT_SHAPE = (8, 65_248)
-TEXT_TRAIN = 35_000
+TEXT_TEXTS = 10_000
+TEXT_TRAIN = 7_000        # the config's split 0.7 / 0.1 / 0.2
 TEXT_CHARS = 999          # + PAD: the model's vocabulary of 1,000
 # each character comes from its class's own Zipf ranking with this
 # probability, else from a ranking both classes share: a Bayes classifier
@@ -291,7 +302,7 @@ TEXT_CUT = {'data.source': 'local',
             'training.tokenizer.name': 'single_char',
             'training.tokenizer.parameters': {'context_len': 70},
             'training.sampler.likelihood_chunk_size': 4096,
-            'training.warmstart.max_epochs': 1,
+            'training.warmstart.max_epochs': 5,
             'training.sampler.warmup_steps': 30,
             'training.sampler.n_samples': 10,
             'training.sampler.n_thinning': 5}
@@ -300,12 +311,13 @@ TEXT_CUT = {'data.source': 'local',
 TEXT_PAD_TOL = 1e-5
 
 # The NUTS path: the config's 12 chains, FCN [16,16,16,2] and tree depth 10
-# (up to 1023 leapfrog steps a draw); only the step counts are cut, so that
-# at that worst-case depth the phase stays within about a minute
+# (up to 1023 leapfrog steps a draw); only the step counts are cut (the
+# warm start to 5 epochs, 6 adaptation steps, 2 draws), so that at that
+# worst-case depth the phase stays within about a minute
 NUTS_CONFIG = ROOT / 'configs' / 'illustrative_airfoil_nuts.yaml'
 NUTS_RESULTS = ROOT / 'results' / 'chip_smoke_nuts'
-NUTS_CUT = {'training.warmstart.max_epochs': 20,
-            'training.sampler.warmup_steps': 10,
+NUTS_CUT = {'training.warmstart.max_epochs': 5,
+            'training.sampler.warmup_steps': 6,
             'training.sampler.n_samples': 2}
 # One NUTS step on the card against the same step on the CPU, from the
 # card's state with the same draws, at tree depth 5 (31 leapfrog steps),
@@ -353,7 +365,7 @@ REUSE_RESULTS = ROOT / 'results' / 'chip_smoke_reuse'
 # width (dim 61,706) on the image path's synthetic archive: the
 # reference's batch 64, 30 leapfrog steps, step 5e-4 and mass 0.01, on
 # 4,096 images (3,153 for training: 49 shards, 2 x 49 x 30 = 2,940 shard
-# gradients a proposal), 3 proposals of which 1 is burnt (on an NVIDIA
+# gradients a proposal), 2 proposals of which 1 is burnt (on an NVIDIA
 # H100 80GB HBM3 at 700 W a proposal took 7.4-15.5 s, host-bound, and 6
 # proposals, 2 burnt, made the phase 123 s on the slower host). One
 # split-leapfrog step (98 shard gradients) on the card against the CPU's
@@ -362,7 +374,7 @@ REUSE_RESULTS = ROOT / 'results' / 'chip_smoke_reuse'
 # path's likelihood gradient agrees card vs CPU to about 3e-5 of its max)
 SPLIT_SCRIPT = ROOT / 'experiments' / 'torch_symmetric_splitting.py'
 SPLIT_ARGS = ['--source', 'local', '--datapoint-limit', '4096',
-              '--num-samples', '3', '--burn', '1']
+              '--num-samples', '2', '--burn', '1']
 SPLIT_SHAPE = (49, 64, 61_706)   # shards, batch, dim
 SPLIT_STEP_RTOL = 1e-4
 # More than one device, on one card: a mesh whose entries repeat cuda:0.
@@ -426,8 +438,8 @@ MESH_WS_RTOL = 1e-3
 # preconditioning, the deep-8 diagnostics FCN; 12 chains each), the step
 # counts cut in memory as CUT cuts the main path: the warm start to 2
 # epochs, the tuner to 100 steps, sampling to 100 steps at the config's
-# thinning; the NUTS job (depth capped at 8 by the catalogue) to 10
-# adaptation steps and 4 draws. Three jobs reuse a provider's warm start.
+# thinning; the NUTS job (depth capped at 8 by the catalogue) to 6
+# adaptation steps and 2 draws. Three jobs reuse a provider's warm start.
 CATALOG_RESULTS = RESULTS / 'catalog'
 CATALOG_JOBS = ('tabular_classif/sonar_mclmc_r1',
                 'hyper_params/bike_mclmc_ev0.5_0.1_r1',
@@ -443,8 +455,8 @@ CATALOG_CUT = {'training.warmstart.max_epochs': 2,
                'training.sampler.warmup_steps': 100,
                'training.sampler.n_samples': 100}
 CATALOG_NUTS_CUT = {'training.warmstart.max_epochs': 2,
-                    'training.sampler.warmup_steps': 10,
-                    'training.sampler.n_samples': 4}
+                    'training.sampler.warmup_steps': 6,
+                    'training.sampler.n_samples': 2}
 # The runner's fault contract with real CUDA errors: this script run again
 # with --catalog-fault-worker MODE ROOT, its trainer replaced by one that
 # indexes out of range on the card (a device-side assert), three times
@@ -470,8 +482,8 @@ QUEUE_STOP_STAGE = ('dataset', '^uci_mclmc_yacht_r1$')
 # feasibility study's energy pair (the 10-layer FCN, dim 2,354, the tuned
 # arm with diagonal preconditioning: K1's preconditioned route) cut to
 # CATALOG_CUT through the loop, pooled and compared value by value
+CLASSIF_JOBS = ['sonar_mclmc_r1']
 CLASSIF_METRICS = ['lppd', 'acc', 'step_size_mean', 'L_mean']
-FEAS_STAGE = ('feasibility', '^feas_(mclmc|tuned)_energy$')
 FEAS_JOBS = ['feas_mclmc_energy', 'feas_tuned_energy']
 FEAS_METRICS = ['lppd', 'rmse', 'cal_error', 'coverage_0.9',
                 'step_size_mean', 'L_mean']
@@ -481,22 +493,34 @@ DATASET_SETS = ('airfoil', 'concrete', 'energy', 'yacht', 'bikesharing',
 # (the deep-8 FCN on energy, the DE arm on bikesharing at width 48, protein
 # at 5,000 rows) with their K1/K3 shapes, pooled and compared with the
 # chains' diagnostics (the table that every comparison here also checks)
-MIXED_STAGES = (('diagnostics', '^diag_mclmc_energy_r1$'),
-                ('complexity', '^bike_de_48x48x48_r1$'),
-                ('datasize', '^protein_mclmc_n5000_r1$'))
+MIXED_STUDIES = ('diagnostics', 'complexity', 'datasize')
 MIXED_SHAPES = {'diag_mclmc_energy_r1': (12, 450),
                 'bike_de_48x48x48_r1': (12, 5_426),
                 'protein_mclmc_n5000_r1': (12, 738)}
 DIAGNOSTICS = ['mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
                'fs_ess', 'fs_split_rhat']
+# The dataset jobs, the feasibility pair and the mixed studies' jobs go
+# through the loop as one stage of five studies: one runner process (a
+# runner takes about 13 s to reach the card; one stage a study made the
+# phase 236 s)
+QUEUE_STAGE = ('dataset,feasibility,' + ','.join(MIXED_STUDIES),
+               '^(uci_mclmc_[a-z]+_r1|feas_(mclmc|tuned)_energy|'
+               + '|'.join(MIXED_SHAPES) + ')$')
+# The catalogue phase's two cut hyper_params jobs (the energy-variance
+# point that provides its seed's warm start, and a trust value reusing it)
+# pooled and compared through both tables against the three JAX seeds
+HYPER_JOBS = ['bike_mclmc_ev0.5_0.1_r1', 'bike_mclmc_trust2.0_r1']
+HYPER_METRICS = ['lppd', 'rmse', 'cal_error', 'coverage_0.9',
+                 'step_size_mean', 'L_mean']
 # A real preemption: this script run again with --preempt-worker ROOT runs
-# BDETrainer on the main path's config at CUT with checkpoint_sampling and
-# 600 sampling steps in chunks of PREEMPT_CHUNK_KEPT kept draws (the
+# BDETrainer on the main path's config at CUT, its warm start cut to 2
+# epochs, with checkpoint_sampling and 600 sampling steps in chunks of PREEMPT_CHUNK_KEPT kept draws (the
 # trainer's 1 GiB chunks would hold the whole run in one), and is killed
 # with SIGKILL once a chunk is on disk; then one trainer run with profile:
 # true, its step counts cut to PROFILE_CUT
 PREEMPT_RESULTS = ROOT / 'results' / 'chip_smoke_preempt'
-PREEMPT_CUT = {**CUT, 'training.sampler.n_samples': 600,
+PREEMPT_CUT = {**CUT, 'training.warmstart.max_epochs': 2,
+               'training.sampler.n_samples': 600,
                'training.sampler.checkpoint_sampling': True}
 PREEMPT_CHUNK_KEPT = 5
 PREEMPT_TIMEOUT_S = 300
@@ -516,13 +540,13 @@ PROFILE_CUT = {'training.warmstart.max_epochs': 1,
 PRECISION_SEED = 12
 LENET_CONV2 = (6, 16, 5, 14, 0)   # in, out, kernel, input side, padding
 PRECISION_RESULTS = ROOT / 'results' / 'chip_smoke_precision'
-PRECISION_CUT = {**CATALOG_CUT, 'training.sampler.n_samples': 500}
+PRECISION_CUT = {**CATALOG_CUT, 'training.sampler.n_samples': 250}
 AB_SCRIPT = ROOT / 'experiments' / 'torch_dtype_ab_widefcn.py'
 AB_RESULTS = ROOT / 'results' / 'chip_smoke_dtype_ab.jsonl'
 AB_WIDTH, AB_SHAPE = 512, (12, 592_386)
 # (at 20 tuner steps phase 3 traces 2 steps, and a coordinate that does
 # not move in them gives its chain L = NaN, as in the JAX tuner)
-AB_WARMUP, AB_TIMED = 30, 5
+AB_WARMUP, AB_TIMED = 30, 2
 AB_TIMEOUT_S = 900
 # The NUTS timing scripts (no hand-written kernel) at tree depth 10, the
 # step counts cut: a depth-10 step is up to 1023 batched leaves of about 5
@@ -536,17 +560,17 @@ NUTS_SCRIPT_TIMEOUT_S = 600
 # The bench phase: bench_torch.py's modes in this process at full width
 # (the airfoil FCN, LeNet over 60,000 images, the wide FCN over 65,536
 # rows), the step counts cut: the headline's tuner to 200 steps (of 2,000)
-# and 3 timed blocks of 300 (of 7 of 3,000), the warm start to 20 epochs
+# and 3 timed blocks of 150 (of 7 of 3,000), the warm start to 10 epochs
 # (of 200), the airfoil chain scaling to 50 steps (of 1,000), the wide
 # FCN's to 3 (of 10), the LeNet and wide-FCN points to 3 (of 30 and 10),
-# the CPU denominators to 100 steps
+# the CPU denominators to 50 steps
 BENCH_RESULTS = ROOT / 'results' / 'chip_smoke_bench'
-BENCH_HEADLINE = {'warmup_steps': 200, 'timed_steps': 300, 'n_repeats': 3}
-BENCH_WS_EPOCHS = 20
+BENCH_HEADLINE = {'warmup_steps': 200, 'timed_steps': 150, 'n_repeats': 3}
+BENCH_WS_EPOCHS = 10
 BENCH_AIRFOIL = ([12, 48, 192, 768, 1_536], 50)
 BENCH_FCN = ([4, 12, 48], 3)
 BENCH_MFU_STEPS = 3
-BENCH_CPU_STEPS = 100
+BENCH_CPU_STEPS = 50
 # K3 at 1,536 chains: refreshes with a device step counter, whose per-chain
 # noise is held against chance correlation
 PHILOX_CHAINS_STEPS = 200
@@ -614,6 +638,7 @@ class Smoke:
         self.launches = {}
         self.path_launches = {}     # the image and text paths', by path
         self.timings = {}
+        self.phase_s = {}           # each phase's seconds, by its name
 
     # ---------------------------------------------------------- helpers
     def check(self, ok: bool, what: str) -> None:
@@ -624,16 +649,19 @@ class Smoke:
     def phase(self, name: str, fn) -> bool:
         print(f'== {name}', flush=True)
         t0 = time.perf_counter()
+        key = name.split(':')[0]
         try:
             fn()
             self.torch.cuda.synchronize()
         except Exception:
             traceback.print_exc(file=sys.stdout)
             self.failures.append(f'{name}: exception')
-            print(f'== {name}: FAILED after {time.perf_counter() - t0:.1f} s',
+            self.phase_s[key] = time.perf_counter() - t0
+            print(f'== {name}: FAILED after {self.phase_s[key]:.1f} s',
                   flush=True)
             return False
-        print(f'== {name}: {time.perf_counter() - t0:.1f} s', flush=True)
+        self.phase_s[key] = time.perf_counter() - t0
+        print(f'== {name}: {self.phase_s[key]:.1f} s', flush=True)
         return True
 
     def cuda_tensor(self, a):
@@ -1536,7 +1564,7 @@ Step by step: each card step is held against the same step taken on
         np.savez(IMAGE_ARCHIVE, x=np.clip(x, 0, 255).astype(np.uint8), y=y)
 
     def image_path(self):
-        """BDETrainer on LeNet at full width (IMAGE_SHAPE, 48,000 training
+        """BDETrainer on LeNet at full width (IMAGE_SHAPE, IMAGE_TRAIN training
         images, likelihood chunks of 8192), step counts cut to IMAGE_CUT,
         through :meth:`_mclmc_path`."""
         import shutil
@@ -1831,7 +1859,7 @@ Step by step: each card step is held against the same step taken on
 
     # -------------------------------------------------------- text path
     def _text_corpus(self):
-        """An IMDB-sized corpus: 50,000 texts over TEXT_CHARS characters
+        """A corpus of TEXT_TEXTS texts over TEXT_CHARS characters
         (U+4E00 onward), lengths uniform in 16-400, labels 0/1 balanced,
         the characters Zipf(1.1)-distributed over a random ranking: the
         class's own with probability TEXT_CLASS_MIX, else one both classes
@@ -1839,7 +1867,7 @@ Step by step: each card step is held against the same step taken on
         import numpy as np
 
         rng = np.random.default_rng(TEXT_SEED)
-        n = 50_000
+        n = TEXT_TEXTS
         y = rng.permutation(np.arange(n) % 2)
         lengths = rng.integers(16, 401, n)
         zipf = np.arange(1, TEXT_CHARS + 1) ** -1.1
@@ -1866,7 +1894,7 @@ Step by step: each card step is held against the same step taken on
 
     def text_path(self):
         """BDETrainer on the IMDB-width AttentionClassifier at full width
-        (TEXT_SHAPE, 35,000 training sequences of 70 tokens, likelihood
+        (TEXT_SHAPE, TEXT_TRAIN training sequences of 70 tokens, likelihood
         chunks of 4096), step counts cut to TEXT_CUT, through
         :meth:`_mclmc_path`; and a batch with pads and an all-pad
         sequence, card against CPU."""
@@ -2635,7 +2663,7 @@ Step by step: each card step is held against the same step taken on
 
     def image_mesh_gradient(self):
         """The image path's full-batch LeNet value and gradient at the
-        tuned state (IMAGE_SHAPE, 48,000 images) over a chain mesh of
+        tuned state (IMAGE_SHAPE, IMAGE_TRAIN images) over a chain mesh of
         cuda:0 twice (5 chains a shard) against the unsharded one, with
         the times of both (median of 3 after one warm-up call)."""
         torch = self.torch
@@ -3246,22 +3274,101 @@ Step by step: each card step is held against the same step taken on
         cool-off, launch 3 skips the twice-struck job and exits 0, and the
         stage is pooled; then, with a STOP file in the root, that stage
         exits 0 and is pooled again, and a later stage exits 75, is not
-        pooled, and ends the loop with 75. Then the dataset study's six r1
-        jobs, cut to CATALOG_CUT, through the loop with the real runner:
-        exit 0, one pooled row each, every compared metric finite in
+        pooled, and ends the loop with 75. Then one stage of five studies
+        (QUEUE_STAGE) through the loop with the real runner, one process:
+        the dataset study's six r1 jobs, cut to CATALOG_CUT (exit 0, one
+        pooled row each, every compared metric finite in
         ``torch_compare_study.py``'s table, K1 and K3 launched 3 and 1
-        times per MCLMC step of each job at DATASET_SHAPES; and K1 and K3
-        against their plain versions at those shapes. Then the cut sonar
-        job's comparison, the feasibility energy pair's and one cut job
-        of each mixed study's (MIXED_STAGES), each comparison with its
-        chain diagnostics."""
+        times per MCLMC step of each job at DATASET_SHAPES, and held
+        against their plain versions there), the feasibility energy pair's
+        and one cut job of each mixed study's, each comparison with its
+        chain diagnostics. And the catalogue phase's cut sonar and
+        hyper_params jobs pooled and compared."""
         tq = self._experiments('torch_catalog_queue')
         drill_s = self._queue_drill(tq)
-        self._queue_dataset(tq)
+        run = self._queue_run(tq)
+        self._queue_dataset(run)
         self.timings['catalog_queue']['drill_s'] = drill_s
-        self.timings['catalog_queue']['classif_s'] = self._queue_classif()
-        self._queue_feasibility(tq)
-        self.timings['catalog_queue']['mixed'] = self._queue_mixed(tq)
+        self.timings['catalog_queue']['classif_s'] = self._queue_catalog(
+            'tabular_classif', CLASSIF_JOBS, CLASSIF_METRICS, 5)
+        self.timings['catalog_queue']['hyper_params_s'] = self._queue_catalog(
+            'hyper_params', HYPER_JOBS, HYPER_METRICS, 3)
+        self._queue_feasibility(run)
+        self.timings['catalog_queue']['mixed'] = self._queue_mixed(run)
+
+    def _queue_run(self, tq) -> dict:
+        """QUEUE_STAGE through the loop, the cut worker its runner: the
+        loop's exit code, its stage result, the wall time and each job's
+        record in ``queue.jsonl``."""
+        import shutil
+
+        shutil.rmtree(QUEUE_RESULTS, ignore_errors=True)
+        shutil.rmtree(QUEUE_AGGR, ignore_errors=True)
+        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
+                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
+                         runner=[sys.executable,
+                                 str(Path(__file__).resolve()),
+                                 '--catalog-cut-worker'])
+        t0 = time.perf_counter()
+        rc = queue.run([tq.Stage(*QUEUE_STAGE)])
+        wall = time.perf_counter() - t0
+        (result,) = queue.results
+        records = {r['job']: r for r in map(json.loads, (
+            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())} \
+            if (QUEUE_RESULTS / 'queue.jsonl').exists() else {}
+        if result.exit_codes != [0]:
+            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
+        return {'rc': rc, 'result': result, 'wall_s': wall,
+                'records': records,
+                'job_timeout_s': tq.JOB_TIMEOUT_S['dataset']}
+
+    def _queue_through(self, run: dict, what: str, names) -> dict:
+        """Checks that ``names`` ran in ``run``'s one stage, each ok: their
+        records."""
+        result = run['result']
+        records = {n: run['records'][n] for n in names
+                   if n in run['records']}
+        self.check(run['rc'] == 0 and result.exit_codes == [0]
+                   and sorted(records) == sorted(names)
+                   and all(r['ok'] for r in records.values()),
+                   f'{what} through the loop\'s one stage: runner exit '
+                   f'codes {result.exit_codes}, '
+                   f'{sum(r["ok"] for r in records.values())} of '
+                   f'{len(names)} ok (the stage\'s {len(run["records"])} '
+                   f'jobs in {run["wall_s"]:.1f} s, timeout '
+                   f'{run["job_timeout_s"]:g} s a job)')
+        return records
+
+    def _queue_job_shape(self, name: str, records: dict, shape) -> dict:
+        """One cut job of ``QUEUE_STAGE``: its (chains, dim) against
+        ``shape`` and its K1/K3 launches against 3 and 1 a step; its
+        entry of the phase's timings."""
+        import dataclasses
+
+        import numpy as np
+
+        cat = self._experiments('torch_run_catalog')
+        job = {j.name: j for j in cat.build_jobs()}[name]
+        job = dataclasses.replace(job, overrides={**job.overrides,
+                                                  **CATALOG_CUT})
+        scfg = job.config(QUEUE_RESULTS).training.sampler
+        dim = sum(a.size for a in np.load(
+            job.exp_dir(QUEUE_RESULTS) / 'warmstart' /
+            'params_0.npz').values())
+        steps = mclmc_steps(scfg)
+        launches = records[name]['launches']
+        self.check(launches == {'isokinetic_momentum': 3 * steps,
+                                'partial_refresh': steps}
+                   and (scfg.n_chains, dim) == tuple(shape),
+                   f'{name}: ({scfg.n_chains}, {dim}) (want '
+                   f'{tuple(shape)}), {steps} steps, K1/K3 '
+                   f'{launches["isokinetic_momentum"]}/'
+                   f'{launches["partial_refresh"]} (3 and 1 a step), '
+                   f'{records[name]["wall_s"]} s')
+        for k in ('isokinetic_momentum', 'partial_refresh'):
+            self.path_launches['catalog_queue'][k] += launches[k]
+        return {'shape': [scfg.n_chains, dim], 'steps': steps,
+                'wall_s': records[name]['wall_s'], 'launches': launches}
 
     def _compare(self, study: str, port_csv: Path, finite: bool = True):
         """``torch_compare_study.py STUDY`` on ``port_csv``: the process,
@@ -3310,91 +3417,112 @@ Step by step: each card step is held against the same step taken on
                  .reset_index(drop=True))
         return proc, table, last
 
-    def _queue_classif(self) -> float:
-        """The catalogue phase's cut ``tabular_classif/sonar_mclmc_r1``
-        pooled and compared through the classification metric set: its
-        seconds."""
+    def _queue_catalog(self, study: str, jobs, metrics, seeds: int
+                       ) -> float:
+        """The catalogue phase's cut ``jobs`` of ``study`` pooled and
+        compared through both of ``torch_compare_study.py``'s tables: the
+        predictive ``metrics`` of each job against ``seeds`` JAX seeds'
+        interval, every value finite; its seconds."""
         import numpy as np
 
         t0 = time.perf_counter()
-        aggr = QUEUE_AGGR / 'aggr_tabular_classif.csv'
+        aggr = QUEUE_AGGR / f'aggr_{study}.csv'
         pool = subprocess.run(
             [sys.executable, str(ROOT / 'experiments' / 'pool_results.py'),
-             str(CATALOG_RESULTS / 'tabular_classif'), '-o', str(aggr)],
+             str(CATALOG_RESULTS / study), '-o', str(aggr)],
             cwd=ROOT, capture_output=True, text=True, timeout=120)
-        proc, table, last = self._compare('tabular_classif', aggr)
+        proc, table, last = self._compare(study, aggr)
         seconds = time.perf_counter() - t0
+        n = len(jobs) * len(metrics)
+        chance = f'{0.05 * n:.1f}'.replace('.', r'\.')
         self.check(pool.returncode == 0 and proc.returncode == 0
                    and table is not None
-                   and table['metric'].tolist() == CLASSIF_METRICS
-                   and set(table['experiment_name']) == {'sonar_mclmc_r1'}
+                   and all(table[table['experiment_name'] == job][
+                       'metric'].tolist() == metrics for job in jobs)
+                   and sorted(set(table['experiment_name'])) == sorted(jobs)
                    and bool(np.isfinite(table['port']).all())
-                   and (table['jax_n'] == 5).all()
-                   and re.fullmatch(r'\d of 4 outside their 95 % intervals '
-                                    r'\(0\.2 expected by chance\)', last)
-                   is not None,
-                   f'the cut sonar job pooled (exit {pool.returncode}) and '
-                   f'compared (exit {proc.returncode}) through '
-                   f'{None if table is None else table["metric"].tolist()} '
-                   f'(want {CLASSIF_METRICS}), every value finite, five JAX '
+                   and (table['jax_n'] == seeds).all()
+                   and re.fullmatch(rf'\d+ of {n} outside their 95 % '
+                                    rf'intervals \({chance} expected by '
+                                    r'chance\)', last) is not None,
+                   f'the cut {study} jobs {jobs} pooled (exit '
+                   f'{pool.returncode}) and compared (exit '
+                   f'{proc.returncode}) through '
+                   f'{None if table is None else sorted(set(table["metric"]))}'
+                   f' (want {metrics}), every value finite, {seeds} JAX '
                    f'seeds an interval: {last!r}, {seconds:.1f} s')
         return seconds
 
-    def _queue_feasibility(self, tq):
-        """The feasibility study's energy pair, cut, through the loop,
-        pooled and compared value by value; K1 (preconditioned too) and K3
-        at its shape."""
-        import dataclasses
-
+    def _queue_dataset(self, run: dict):
+        """The dataset study's r1 jobs of ``run``, pooled and compared; K1
+        and K3 at their shapes."""
         import numpy as np
+        import pandas as pd
 
-        cat = self._experiments('torch_run_catalog')
-        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
-                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
-                         runner=[sys.executable,
-                                 str(Path(__file__).resolve()),
-                                 '--catalog-cut-worker'])
-        t0 = time.perf_counter()
-        rc = queue.run([tq.Stage(*FEAS_STAGE)])
-        wall = time.perf_counter() - t0
-        (result,) = queue.results
-        records = {r['job']: r for r in map(json.loads, (
-            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())
-            if r['job'] in FEAS_JOBS}
-        self.check(rc == 0 and result.exit_codes == [0]
-                   and sorted(records) == sorted(FEAS_JOBS)
-                   and all(r['ok'] for r in records.values()),
-                   f'the feasibility study\'s energy pair through the loop: '
-                   f'runner exit codes {result.exit_codes}, '
-                   f'{sum(r["ok"] for r in records.values())} of '
-                   f'{len(FEAS_JOBS)} ok in {wall:.1f} s')
-        if result.exit_codes != [0]:
-            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
-        by_key = {j.name: j for j in cat.build_jobs()}
+        from mile_tpu_torch.utils.card import HBM_BYTES_PER_S
+
+        names = [f'uci_mclmc_{ds}_r1' for ds in DATASET_SETS]
+        records = self._queue_through(run, 'the dataset study\'s r1 jobs',
+                                      names)
+        self.path_launches['catalog_queue'] = {'isokinetic_momentum': 0,
+                                               'partial_refresh': 0}
         per_job = {}
-        for name in FEAS_JOBS:
-            job = dataclasses.replace(by_key[name], overrides={
-                **by_key[name].overrides, **CATALOG_CUT})
-            scfg = job.config(QUEUE_RESULTS).training.sampler
-            dim = sum(a.size for a in np.load(
-                job.exp_dir(QUEUE_RESULTS) / 'warmstart' /
-                'params_0.npz').values())
-            steps = mclmc_steps(scfg)
-            launches = records[name]['launches']
-            per_job[name] = {'shape': [scfg.n_chains, dim], 'steps': steps,
-                             'wall_s': records[name]['wall_s'],
-                             'launches': launches}
-            self.check(launches == {'isokinetic_momentum': 3 * steps,
-                                    'partial_refresh': steps}
-                       and (scfg.n_chains, dim) == FEAS_SHAPE,
-                       f'{name}: ({scfg.n_chains}, {dim}) (want '
-                       f'{FEAS_SHAPE}), {steps} steps, K1/K3 '
-                       f'{launches["isokinetic_momentum"]}/'
-                       f'{launches["partial_refresh"]} (3 and 1 a step), '
-                       f'{records[name]["wall_s"]} s')
-        for k in ('isokinetic_momentum', 'partial_refresh'):
-            self.path_launches['catalog_queue'][k] += sum(
-                r['launches'][k] for r in records.values())
+        for name, shape in zip(names, DATASET_SHAPES):
+            if name not in records:
+                continue
+            row = per_job[name] = self._queue_job_shape(name, records, shape)
+            k1_bytes, k3_bytes = kernel_bytes(*row['shape'])
+            row['bound_us'] = {
+                'isokinetic_momentum': 1e6 * k1_bytes / HBM_BYTES_PER_S,
+                'partial_refresh': 1e6 * k3_bytes / HBM_BYTES_PER_S}
+
+        pooled = pd.read_csv(QUEUE_AGGR / 'aggr_dataset.csv')
+        for name in per_job:
+            row = pooled[pooled['experiment_name'] == name]
+            if len(row):
+                sampling_s = float(row['time.sampling'].iloc[0])
+                per_job[name]['time_sampling_s'] = sampling_s
+                per_job[name]['time_warmstart_s'] = float(
+                    row['time.warmstart'].iloc[0])
+                per_job[name]['chain_steps_per_s'] = (
+                    per_job[name]['shape'][0] * per_job[name]['steps']
+                    / sampling_s)
+        self.check(sorted(pooled['experiment_name']) == sorted(names),
+                   f'pooled into {QUEUE_AGGR / "aggr_dataset.csv"}: a row '
+                   f'for each set ({len(pooled)} rows)')
+        proc, table, last = self._compare('dataset',
+                                          QUEUE_AGGR / 'aggr_dataset.csv')
+        self.check(proc.returncode == 0 and table is not None
+                   and len(table) == 6 * len(names)
+                   and bool(np.isfinite(table['port']).all())
+                   and sorted(set(table['group'])) == sorted(
+                       f'uci_mclmc_{ds}' for ds in DATASET_SETS),
+                   f'torch_compare_study.py: exit {proc.returncode}, '
+                   f'{0 if table is None else len(table)} comparisons, '
+                   f'every compared metric finite (at cut step counts the '
+                   f'verdicts mean nothing: {last!r})')
+
+        # K1 and K3 against their plain versions at the jobs' shapes
+        gen = self.torch.Generator().manual_seed(11)
+        for n_chains, dim in sorted(set(DATASET_SHAPES)):
+            self._k1_check(n_chains, dim)
+            self._k3_check(n_chains, dim, gen)
+        for name, row in per_job.items():
+            print(f'  {name}: {row["wall_s"]} s, sampling '
+                  f'{row.get("time_sampling_s", float("nan")):.2f} s, '
+                  f'{row.get("chain_steps_per_s", float("nan")):.0f} '
+                  f'chain-steps/s')
+        self.timings['catalog_queue'] = {'wall_s': run['wall_s'],
+                                         'jobs': per_job}
+
+    def _queue_feasibility(self, run: dict):
+        """The feasibility study's energy pair of ``run``, pooled and
+        compared value by value; K1 (preconditioned too) and K3 at its
+        shape."""
+        records = self._queue_through(
+            run, 'the feasibility study\'s energy pair', FEAS_JOBS)
+        per_job = {name: self._queue_job_shape(name, records, FEAS_SHAPE)
+                   for name in FEAS_JOBS if name in records}
         proc, table, last = self._compare(
             'feasibility', QUEUE_AGGR / 'aggr_feasibility.csv', finite=False)
         verdicts = set() if table is None else set(table['verdict'])
@@ -3411,69 +3539,23 @@ Step by step: each card step is held against the same step taken on
                    f'{FEAS_METRICS}: verdicts {sorted(verdicts)}, {last!r}')
         self._k1_check(*FEAS_SHAPE)
         self._k3_check(*FEAS_SHAPE, self.torch.Generator().manual_seed(13))
-        self.timings['catalog_queue']['feasibility'] = {'wall_s': wall,
-                                                        'jobs': per_job}
+        self.timings['catalog_queue']['feasibility'] = {'jobs': per_job}
 
-    def _queue_mixed(self, tq) -> dict:
+    def _queue_mixed(self, run: dict) -> dict:
         """One cut job of each mixed study's MCLMC or DE half
-        (MIXED_STAGES) through the loop, one stage each: every job ok, K1
-        and K3 launched 3 and 1 times a step at MIXED_SHAPES, each study
-        pooled and compared with both tables of
-        ``torch_compare_study.py``; K1 and K3 against their plain versions
-        at those shapes. Returns the wall time and each job's record."""
-        import dataclasses
-
-        import numpy as np
-
+        (MIXED_SHAPES) of ``run``: every job ok, K1 and K3 launched 3 and
+        1 times a step at MIXED_SHAPES, each study pooled and compared
+        with both tables of ``torch_compare_study.py``; K1 and K3 against
+        their plain versions at those shapes. Returns each job's
+        record."""
         cat = self._experiments('torch_run_catalog')
-        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
-                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
-                         runner=[sys.executable,
-                                 str(Path(__file__).resolve()),
-                                 '--catalog-cut-worker'])
-        t0 = time.perf_counter()
-        rc = queue.run([tq.Stage(*stage) for stage in MIXED_STAGES])
-        wall = time.perf_counter() - t0
-        codes = [r.exit_codes for r in queue.results]
-        records = {r['job']: r for r in map(json.loads, (
-            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())
-            if r['job'] in MIXED_SHAPES}
-        self.check(rc == 0 and codes == [[0]] * len(MIXED_STAGES)
-                   and sorted(records) == sorted(MIXED_SHAPES)
-                   and all(r['ok'] for r in records.values()),
-                   f'one cut job of each mixed study through the loop: '
-                   f'runner exit codes {codes}, '
-                   f'{sum(r["ok"] for r in records.values())} of '
-                   f'{len(MIXED_SHAPES)} ok in {wall:.1f} s')
-        if rc != 0:
-            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
+        records = self._queue_through(
+            run, 'one cut job of each mixed study', list(MIXED_SHAPES))
+        per_job = {name: self._queue_job_shape(name, records, shape)
+                   for name, shape in MIXED_SHAPES.items()
+                   if name in records}
         by_key = {j.name: j for j in cat.build_jobs()}
-        per_job = {}
-        for name, shape in MIXED_SHAPES.items():
-            if name not in records:
-                continue
-            job = dataclasses.replace(by_key[name], overrides={
-                **by_key[name].overrides, **CATALOG_CUT})
-            scfg = job.config(QUEUE_RESULTS).training.sampler
-            dim = sum(a.size for a in np.load(
-                job.exp_dir(QUEUE_RESULTS) / 'warmstart' /
-                'params_0.npz').values())
-            steps = mclmc_steps(scfg)
-            launches = records[name]['launches']
-            per_job[name] = {'shape': [scfg.n_chains, dim], 'steps': steps,
-                             'wall_s': records[name]['wall_s'],
-                             'launches': launches}
-            self.check(launches == {'isokinetic_momentum': 3 * steps,
-                                    'partial_refresh': steps}
-                       and (scfg.n_chains, dim) == shape,
-                       f'{name}: ({scfg.n_chains}, {dim}) (want {shape}), '
-                       f'{steps} steps, K1/K3 '
-                       f'{launches["isokinetic_momentum"]}/'
-                       f'{launches["partial_refresh"]} (3 and 1 a step), '
-                       f'{records[name]["wall_s"]} s')
-            for k in ('isokinetic_momentum', 'partial_refresh'):
-                self.path_launches['catalog_queue'][k] += launches[k]
-        for study, _ in MIXED_STAGES:
+        for study in MIXED_STUDIES:
             proc, table, last = self._compare(
                 study, QUEUE_AGGR / f'aggr_{study}.csv')
             jobs = [n for n in MIXED_SHAPES if by_key[n].study == study]
@@ -3488,7 +3570,7 @@ Step by step: each card step is held against the same step taken on
         for shape in sorted(set(MIXED_SHAPES.values())):
             self._k1_check(*shape)
             self._k3_check(*shape, gen)
-        return {'wall_s': wall, 'jobs': per_job}
+        return {'jobs': per_job}
 
     def _queue_drill(self, tq) -> list:
         """The loop's fault drill and STOP (``catalog_queue``'s first
@@ -3537,114 +3619,6 @@ Step by step: each card step is held against the same step taken on
         if rc != 75 or result.exit_codes != [70, 70, 0]:
             print(textwrap.indent(log[-3000:], '    '))
         return [drill_s, stop_s]
-
-    def _queue_dataset(self, tq):
-        """The dataset study's r1 jobs, cut, through the loop, pooled and
-        compared; K1 and K3 at their shapes (``catalog_queue``'s second
-        half)."""
-        import dataclasses
-        import shutil
-
-        import numpy as np
-        import pandas as pd
-
-        cat = self._experiments('torch_run_catalog')
-        from mile_tpu_torch.utils.card import HBM_BYTES_PER_S
-
-        shutil.rmtree(QUEUE_RESULTS, ignore_errors=True)
-        shutil.rmtree(QUEUE_AGGR, ignore_errors=True)
-        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
-                         device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
-                         runner=[sys.executable,
-                                 str(Path(__file__).resolve()),
-                                 '--catalog-cut-worker'])
-        t0 = time.perf_counter()
-        rc = queue.run([tq.Stage('dataset', '_r1$')])
-        wall = time.perf_counter() - t0
-        (result,) = queue.results
-        records = {r['job']: r for r in map(json.loads, (
-            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())} \
-            if (QUEUE_RESULTS / 'queue.jsonl').exists() else {}
-        names = [f'uci_mclmc_{ds}_r1' for ds in DATASET_SETS]
-        self.check(rc == 0 and result.exit_codes == [0]
-                   and sorted(records) == sorted(names)
-                   and all(r['ok'] for r in records.values()),
-                   f'the dataset study\'s r1 jobs through the loop: runner '
-                   f'exit codes {result.exit_codes}, '
-                   f'{sum(r["ok"] for r in records.values())} of '
-                   f'{len(names)} ok in {wall:.1f} s (timeout '
-                   f'{tq.JOB_TIMEOUT_S["dataset"]:g} s a job)')
-        if result.exit_codes != [0]:
-            print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
-        by_key = {j.name: j for j in cat.build_jobs()}
-        per_job, shapes = {}, []
-        for name, shape in zip(names, DATASET_SHAPES):
-            job = dataclasses.replace(by_key[name], overrides={
-                **by_key[name].overrides, **CATALOG_CUT})
-            scfg = job.config(QUEUE_RESULTS).training.sampler
-            exp = job.exp_dir(QUEUE_RESULTS)
-            dim = sum(a.size for a in np.load(
-                exp / 'warmstart' / 'params_0.npz').values())
-            shapes.append((scfg.n_chains, dim))
-            steps = mclmc_steps(scfg)
-            launches = records[name]['launches']
-            k1_bytes, k3_bytes = kernel_bytes(scfg.n_chains, dim)
-            per_job[name] = {
-                'shape': [scfg.n_chains, dim], 'steps': steps,
-                'wall_s': records[name]['wall_s'], 'launches': launches,
-                'bound_us': {'isokinetic_momentum':
-                             1e6 * k1_bytes / HBM_BYTES_PER_S,
-                             'partial_refresh':
-                             1e6 * k3_bytes / HBM_BYTES_PER_S}}
-            self.check(launches == {'isokinetic_momentum': 3 * steps,
-                                    'partial_refresh': steps}
-                       and (scfg.n_chains, dim) == shape,
-                       f'{name}: ({scfg.n_chains}, {dim}) (want {shape}), '
-                       f'{steps} steps, K1/K3 '
-                       f'{launches["isokinetic_momentum"]}/'
-                       f'{launches["partial_refresh"]} (3 and 1 a step), '
-                       f'{records[name]["wall_s"]} s')
-        self.path_launches['catalog_queue'] = {
-            k: sum(r['launches'][k] for r in records.values())
-            for k in ('isokinetic_momentum', 'partial_refresh')}
-
-        pooled = pd.read_csv(QUEUE_AGGR / 'aggr_dataset.csv')
-        for name in names:
-            row = pooled[pooled['experiment_name'] == name]
-            if len(row):
-                sampling_s = float(row['time.sampling'].iloc[0])
-                per_job[name]['time_sampling_s'] = sampling_s
-                per_job[name]['time_warmstart_s'] = float(
-                    row['time.warmstart'].iloc[0])
-                per_job[name]['chain_steps_per_s'] = (
-                    per_job[name]['shape'][0] * per_job[name]['steps']
-                    / sampling_s)
-        self.check(sorted(pooled['experiment_name']) == sorted(names),
-                   f'pooled into {QUEUE_AGGR / "aggr_dataset.csv"}: a row '
-                   f'for each set ({len(pooled)} rows)')
-        proc, table, last = self._compare('dataset',
-                                          QUEUE_AGGR / 'aggr_dataset.csv')
-        self.check(proc.returncode == 0 and table is not None
-                   and len(table) == 6 * len(names)
-                   and bool(np.isfinite(table['port']).all())
-                   and sorted(set(table['group'])) == sorted(
-                       f'uci_mclmc_{ds}' for ds in DATASET_SETS),
-                   f'torch_compare_study.py: exit {proc.returncode}, '
-                   f'{0 if table is None else len(table)} comparisons, '
-                   f'every compared metric finite (at cut step counts the '
-                   f'verdicts mean nothing: {last!r})')
-
-        # (c) K1 and K3 against their plain versions at the jobs' shapes
-        gen = self.torch.Generator().manual_seed(11)
-        for n_chains, dim in sorted(set(shapes)):
-            self._k1_check(n_chains, dim)
-            self._k3_check(n_chains, dim, gen)
-        for name, row in per_job.items():
-            print(f'  {name}: {row["wall_s"]} s, sampling '
-                  f'{row.get("time_sampling_s", float("nan")):.2f} s, '
-                  f'{row.get("chain_steps_per_s", float("nan")):.0f} '
-                  f'chain-steps/s')
-        self.timings['catalog_queue'] = {'wall_s': wall, 'jobs': per_job}
 
     def preemption(self):
         """A real preemption and ``profile: true`` on the card. A worker
@@ -3837,8 +3811,9 @@ Step by step: each card step is held against the same step taken on
 
     def _one_pass_products(self):
         """The dense products of FCN [16, 16, 2] and [16, 16, 16, 2] (12
-        chains, airfoil's 1052 rows), LeNet's grouped convolution and the
-        text attention's q·kᵀ."""
+        chains, airfoil's 1052 rows) and of the complexity study's [48, 48, 48, 2] (12
+        chains, bikesharing's 8515 training rows), LeNet's grouped
+        convolution and the text attention's q·kᵀ."""
         import numpy as np
         import torch.nn.functional as F
 
@@ -3858,16 +3833,19 @@ Step by step: each card step is held against the same step taken on
 
         rng = np.random.default_rng(PRECISION_SEED)
         errs = {}
-        widths = [(5, 16), (16, 16), (16, 2)]      # airfoil's 5 features
-        for i, (k, n) in enumerate(widths):
-            a = rng.standard_normal((12, 1052, k)).astype(np.float32)
+        # airfoil's 5 features and 1052 rows at width 16; bikesharing's 12
+        # features and 8515 rows at the complexity study's width 48
+        widths = [(1052, 5, 16), (1052, 16, 16), (1052, 16, 2),
+                  (8515, 12, 48), (8515, 48, 48), (8515, 48, 2)]
+        for i, (rows, k, n) in enumerate(widths):
+            a = rng.standard_normal((12, rows, k)).astype(np.float32)
             b = rng.standard_normal((12, k, n)).astype(np.float32)
             card, cpu, g = self._one_pass_pair(
-                blocks.product, (a, b), (12, 1052, n), PRECISION_SEED + i)
+                blocks.product, (a, b), (12, rows, n), PRECISION_SEED + i)
             exact, sums = bmm_exact(a, b, g)
-            errs[f'dense ({k}, {n})'] = self._one_pass_check(
-                f'dense (12, 1052, {k}) x (12, {k}, {n})', card, cpu, exact,
-                sums, (k, n, 1052))
+            errs[f'dense ({rows}, {k}, {n})'] = self._one_pass_check(
+                f'dense (12, {rows}, {k}) x (12, {k}, {n})', card, cpu,
+                exact, sums, (k, n, rows))
 
         # LeNet's grouped convolution: 10 chains, 64 images of the first
         # convolution's pooled output
@@ -4440,9 +4418,10 @@ Step by step: each card step is held against the same step taken on
         return drills
 
     # ---------------------------------------------------------- timings
-    def _time_ms(self, fn, n: int = 500, reps: int = 5) -> float:
+    def _time_ms(self, fn, n: int = 500, reps: int = 5,
+                 warm: int = 20) -> float:
         torch = self.torch
-        for _ in range(20):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         out = []
@@ -4472,7 +4451,8 @@ Step by step: each card step is held against the same step taken on
             with torch.cuda.graph(graph):
                 for _ in range(n):
                     fn()
-            return self._time_ms(graph.replay, n=5, reps=5) / n
+            # the capture ran each call once: two replays warm the graph
+            return self._time_ms(graph.replay, n=5, reps=5, warm=2) / n
         except Exception as exc:   # reported, not fatal: an extra column
             print(f'  graph timing unavailable: {exc!r}')
             return None
@@ -4541,10 +4521,10 @@ Step by step: each card step is held against the same step taken on
                        'bound_by': 'bytes' if t_bytes >= t_ops
                        else 'operations',
                        'bytes': nbytes, 'operations': nops}
-                if plain is not None:   # 0.3-1.2 ms a call
+                if plain is not None:   # 0.3-1.2 ms a call, 10-20 kernels
                     row.update(plain_ms=self._time_ms(plain, n=calls // 5),
                                plain_graph_ms=self._graph_ms(
-                                   plain, n=calls * 2 // 5))
+                                   plain, n=calls // 10))
                 key = f'{name} ({n_chains}, {dim})'
                 self.timings[key] = row
                 print(f'  {key} {json.dumps(row)}')
@@ -4871,6 +4851,7 @@ def main() -> int:
 
     timings = smoke.timings
     print(json.dumps({'timings': timings, 'card': card,
+                      'phase_s': smoke.phase_s,
                       'wall_s': time.perf_counter() - t_start}))
     kernels = []
     for name, source_fn, replaces, err in (

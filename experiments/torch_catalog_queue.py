@@ -8,10 +8,12 @@
         [--aggr-dir aggr_results_torch] [--cooloff S] [--device cuda|cpu]
         [--tpu-arithmetic] [--runner CMD]
 
-Each stage is one study of the catalogue, optionally narrowed by a regex
-on the job name, run as a fresh process of the runner,
+Each stage is one study of the catalogue, or several joined by commas
+(``STUDY,STUDY:REGEX``: one runner process for jobs of several studies),
+optionally narrowed by a regex on the job name, run as a fresh process of
+the runner,
 
-    experiments/torch_run_catalog.py --root ROOT --only STUDY
+    experiments/torch_run_catalog.py --root ROOT --only STUDY[,STUDY]
         [--name-filter REGEX] --job-timeout S --device D [--tpu-arithmetic]
 
 and, when that process exits, handled as the shell function handles it:
@@ -25,8 +27,9 @@ and, when that process exits, handled as the shell function handles it:
   job that faults twice is skipped by the third launch);
 - 0 or 1 (every job ran, or one failed): it goes on.
 
-After each stage that was not stopped it pools ``ROOT/STUDY`` with
-``experiments/pool_results.py`` into ``AGGR_DIR/aggr_<study>.csv``. The
+After each stage that was not stopped it pools ``ROOT/STUDY`` of each of
+its studies with ``experiments/pool_results.py`` into
+``AGGR_DIR/aggr_<study>.csv``. The
 default directory is ``aggr_results_torch/``; ``aggr_results/`` holds the
 JAX package's pooled studies and is refused.
 
@@ -37,7 +40,8 @@ loop passes that on like any failed stage and falls back to nothing.
 
 Job timeouts. The runner's watchdog strikes a job that outlives its
 ``--job-timeout`` as a hang. The loop passes the figure of the stage's
-study in ``JOB_TIMEOUT_S``, else the runner's default of 1800 s. The
+study in ``JOB_TIMEOUT_S``, else the runner's default of 1800 s (the
+largest of its studies' for a stage of several). The
 ``dataset`` study's jobs (``configs/replicate_uci/mclmc.yaml``, 12
 chains) are each:
 
@@ -62,6 +66,10 @@ of ``diagnostics`` (the deep-8 FCN on airfoil, bikesharing and energy),
 up to 40,000 rows, 36,000 of them training rows: 1,125 batches an
 epoch, more than the ``dataset`` study's 1,001): the same step counts
 after warm starts no longer than protein's, up to about 2,600 s alone.
+``hyper_params`` (bikesharing, FCN [16, 16, 16, 2]) runs its warm-up
+budget sweep up to 200,000 tuner and 10,000 sampling steps, 2,100 s at
+100 steps/s, after the warm start of its seed's provider (267 batches an
+epoch, up to 480 s): 7,200 s as well.
 
 ``--tpu-arithmetic`` is passed on to every runner: its jobs run at the
 TPU's one bfloat16 pass wherever their precision is None (see the
@@ -95,7 +103,8 @@ DEFAULT_JOB_TIMEOUT_S = 1800.0
 # per-study job timeouts (s); the derivation is in the module docstring
 JOB_TIMEOUT_S = {'dataset': 7200.0, 'dtype_ab': 7200.0,
                  'feasibility': 7200.0, 'diagnostics': 7200.0,
-                 'complexity': 7200.0, 'datasize': 7200.0}
+                 'complexity': 7200.0, 'datasize': 7200.0,
+                 'hyper_params': 7200.0}
 
 
 @dataclasses.dataclass
@@ -105,11 +114,16 @@ class Stage:
 
     @classmethod
     def parse(cls, spec: str) -> 'Stage':
-        """``STUDY`` or ``STUDY:REGEX`` (split at the first colon)."""
+        """``STUDY`` or ``STUDY:REGEX`` (split at the first colon); STUDY
+        may join several studies with commas."""
         study, _, regex = spec.partition(':')
-        if not study:
+        if not all(study.split(',')):
             raise ValueError(f'stage {spec!r}: no study')
         return cls(study, regex or None)
+
+    @property
+    def studies(self) -> list:
+        return self.study.split(',')
 
     def __str__(self) -> str:
         return self.study + (f':{self.name_filter}' if self.name_filter
@@ -120,7 +134,8 @@ class Stage:
 class StageResult:
     stage: Stage
     exit_codes: list
-    pooled: Optional[Path] = None
+    pooled: Optional[Path] = None     # the first study's pooled CSV
+    pooled_all: list = dataclasses.field(default_factory=list)
     abandoned: bool = False
     stopped: bool = False
 
@@ -162,7 +177,8 @@ class Queue:
         cmd = [*self.runner, '--root', str(self.root), '--only', stage.study]
         if stage.name_filter:
             cmd += ['--name-filter', stage.name_filter]
-        job_timeout = JOB_TIMEOUT_S.get(stage.study, DEFAULT_JOB_TIMEOUT_S)
+        job_timeout = max(JOB_TIMEOUT_S.get(study, DEFAULT_JOB_TIMEOUT_S)
+                          for study in stage.studies)
         cmd += ['--job-timeout', f'{job_timeout:g}', '--device', self.device]
         return cmd + ['--tpu-arithmetic'] if self.tpu_arithmetic else cmd
 
@@ -192,15 +208,17 @@ class Queue:
         return result
 
     def pool(self, result: StageResult) -> None:
-        study = result.stage.study
-        out = self.aggr_dir / f'aggr_{study}.csv'
         self.aggr_dir.mkdir(parents=True, exist_ok=True)
-        rc = self.call([sys.executable, str(POOL), str(self.root / study),
-                        '-o', str(out)])
-        if rc == 0:
-            result.pooled = out
-        else:
-            self.say(f'=== pooling {study} failed (exit {rc})')
+        for i, study in enumerate(result.stage.studies):
+            out = self.aggr_dir / f'aggr_{study}.csv'
+            rc = self.call([sys.executable, str(POOL),
+                            str(self.root / study), '-o', str(out)])
+            if rc == 0:
+                result.pooled_all.append(out)
+                if i == 0:
+                    result.pooled = out
+            else:
+                self.say(f'=== pooling {study} failed (exit {rc})')
 
     def run(self, stages: Sequence[Stage]) -> int:
         self.root.mkdir(parents=True, exist_ok=True)
@@ -221,15 +239,17 @@ class Queue:
               f'{" ".join(map(str, result.exit_codes))}'
               + (' (abandoned)' if result.abandoned else '')
               + (' (stopped, not pooled)' if result.stopped else
-                 f'; pooled: {result.pooled}'), flush=True)
+                 '; pooled: ' + (', '.join(map(str, result.pooled_all))
+                                 or 'None')), flush=True)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--root', type=Path, default=Path('results/torch_catalog'))
     p.add_argument('--stage', action='append', required=True,
-                   type=Stage.parse, metavar='STUDY[:REGEX]',
-                   help='a study, and a regex on its job names; repeat '
+                   type=Stage.parse, metavar='STUDY[,STUDY][:REGEX]',
+                   help='a study (or several, joined by commas, in one '
+                        'runner), and a regex on its job names; repeat '
                         'for more stages, run in the order given')
     p.add_argument('--aggr-dir', type=Path, default=AGGR_DIR,
                    help='where aggr_<study>.csv goes (never aggr_results/)')

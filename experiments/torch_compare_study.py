@@ -3,7 +3,7 @@
 
     python experiments/torch_compare_study.py STUDY
         [--port aggr_results_torch/tpu_arithmetic/aggr_STUDY.csv]
-        [--jax aggr_results/aggr_STUDY.csv] [--out FILE.csv]
+        [--jax aggr_results/aggr_STUDY.csv] [--out FILE.csv] [--by-sweep]
 
 Reads both pooled CSVs (``experiments/pool_results.py``'s rows), joined on
 ``experiment_name``. The metrics compared are those of ``METRICS``
@@ -30,7 +30,11 @@ seeds). For each group and metric:
   is not finite is outside).
 
 The table's count line gives the values outside against the count
-expected by chance, 5 % of those compared.
+expected by chance, 5 % of those compared. With ``--by-sweep`` a line
+after it counts them by sweep, a grid point's group without its trailing
+values (``bike_mclmc_ev100.0_0.05`` and ``bike_mclmc_ev0.5_0.1`` are the
+sweep ``bike_mclmc_ev``; ``bike_mclmc_wu200000`` is ``bike_mclmc_wu``;
+``bike_de`` is its own), each against its chance.
 
 Values (a study with one run a job, such as ``feasibility``: no group has
 two rows, so there is no interval). Each port job with a JAX row of its
@@ -80,6 +84,7 @@ METRICS = ('lppd', 'rmse', 'acc', 'cal_error', 'coverage_0.9',
 DIAGNOSTICS = ('mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
                'fs_ess', 'fs_split_rhat')
 SEED = re.compile(r'_r\d+$')
+SWEEP = re.compile(r'\d[\d.x_]*$')
 # Student's t, 0.975 quantile, by degrees of freedom
 T975 = {1: 12.706204736174694, 2: 4.302652729749462, 3: 3.1824463052837078,
         4: 2.7764451051977934, 5: 2.5705818356363146, 6: 2.4469118511449786,
@@ -91,6 +96,11 @@ EPS_FAILS_BELOW = 1e-6
 
 def group_of(name: str) -> str:
     return SEED.sub('', name)
+
+
+def sweep_of(group: str) -> str:
+    """A grid point's sweep: its group without its trailing values."""
+    return SWEEP.sub('', group)
 
 
 def prediction_interval(values) -> tuple[float, float, float, float]:
@@ -250,11 +260,26 @@ def summary(df: pd.DataFrame, by_metric: bool = False) -> str:
             + (f'; {counts}' if counts else '') + ')')
 
 
-def report(port: pd.DataFrame, jax: pd.DataFrame) -> tuple[pd.DataFrame,
-                                                            list[str]]:
+def summary_sweeps(df: pd.DataFrame) -> str:
+    """The seeds mode's count by sweep: each sweep's values outside of
+    those compared, against chance."""
+    compared = df[df['verdict'] != 'no interval']
+    parts = []
+    for sweep, rows in compared.groupby(compared['group'].map(sweep_of),
+                                        sort=True):
+        outside = int((rows['verdict'] == 'outside').sum())
+        parts.append(f'{sweep} {outside} of {len(rows)} '
+                     f'({CHANCE * len(rows):.1f})')
+    return 'by sweep: ' + '; '.join(parts)
+
+
+def report(port: pd.DataFrame, jax: pd.DataFrame, by_sweep: bool = False
+           ) -> tuple[pd.DataFrame, list[str]]:
     """Both tables of a study: (the comparison, its ``table`` column
     naming ``predictive`` or ``diagnostics`` rows; the printed lines).
-    The diagnostics table is left out when the JAX study has none."""
+    The diagnostics table is left out when the JAX study has none.
+    ``by_sweep``: each seeds-mode count line is followed by the count by
+    sweep."""
     values = one_run_a_job(jax)
     frames, lines = [], []
     for name, candidates in (('predictive', METRICS),
@@ -270,6 +295,8 @@ def report(port: pd.DataFrame, jax: pd.DataFrame) -> tuple[pd.DataFrame,
         else:
             df = compare(port, jax, metrics)
             lines += [table(df), summary(df, by_metric=name == 'diagnostics')]
+            if by_sweep:
+                lines.append(summary_sweeps(df))
         frames.append(df.assign(table=name))
     return pd.concat(frames, ignore_index=True), lines
 
@@ -285,13 +312,15 @@ def main(argv=None) -> int:
                    help='default aggr_results/aggr_<study>.csv')
     p.add_argument('--out', type=Path, default=None,
                    help='also write the comparison as a CSV')
+    p.add_argument('--by-sweep', action='store_true',
+                   help='after each count line, the count by sweep')
     args = p.parse_args(argv)
     port = pd.read_csv(args.port or
                        ROOT / 'aggr_results_torch' / 'tpu_arithmetic' /
                        f'aggr_{args.study}.csv')
     jax = pd.read_csv(args.jax or
                       ROOT / 'aggr_results' / f'aggr_{args.study}.csv')
-    df, lines = report(port, jax)
+    df, lines = report(port, jax, by_sweep=args.by_sweep)
     print('\n'.join(lines))
     if args.out is not None:
         df.to_csv(args.out, index=False)

@@ -50,11 +50,11 @@ STUB = textwrap.dedent('''
     counter.write_text(str(n + 1))
     rc = codes[min(n, len(codes) - 1)]
     print(f'stub runner: {{args.only}} launch {{n + 1}}, exit {{rc}}')
-    if rc in (0, 1):
-        exp = Path(args.root) / args.only / f'{{args.only}}_job_r1'
+    for study in args.only.split(',') if rc in (0, 1) else ():
+        exp = Path(args.root) / study / f'{{study}}_job_r1'
         exp.mkdir(parents=True, exist_ok=True)
         (exp / 'config.yaml').write_text(
-            f'experiment_name: {{args.only}}_job_r1\\nrng: 1\\n')
+            f'experiment_name: {{study}}_job_r1\\nrng: 1\\n')
         with open(exp / 'metrics.pkl', 'wb') as f:
             pickle.dump({{'lppd': 0.5, 'rmse': 0.25}}, f)
     sys.exit(rc)
@@ -103,6 +103,32 @@ def test_a_fault_then_success_relaunches_once_and_pools(tmp_path, stub):
     log = (tmp_path / 'root' / 'queue_driver.log').read_text()
     assert 'device fault during: dataset:_r1$ (attempt 1); cooling off' in log
     assert 'stub runner: dataset launch 2, exit 0' in log
+
+
+def test_a_stage_of_several_studies_runs_one_runner_and_pools_each(
+        tmp_path, stub):
+    """``STUDY,STUDY:REGEX``: one runner process for the jobs of both
+    studies, with the larger job timeout, then each study pooled."""
+    runner, script, launches = stub
+    script(**{'hyper_params,datasize': [0]})
+    queue = _queue(tmp_path, runner)
+    stage = tq.Stage.parse('hyper_params,datasize:^(a|b)$')
+    assert stage.studies == ['hyper_params', 'datasize']
+    assert queue.run([stage]) == 0
+    (result,) = queue.results
+    (call,) = launches()
+    assert call['only'] == 'hyper_params,datasize'
+    assert call['name_filter'] == '^(a|b)$'
+    assert call['job_timeout'] == '7200'
+    aggr = tmp_path / 'aggr'
+    assert result.pooled == aggr / 'aggr_hyper_params.csv'
+    assert result.pooled_all == [aggr / 'aggr_hyper_params.csv',
+                                 aggr / 'aggr_datasize.csv']
+    for study in stage.studies:
+        assert pd.read_csv(aggr / f'aggr_{study}.csv')[
+            'experiment_name'].tolist() == [f'{study}_job_r1']
+    with pytest.raises(ValueError):
+        tq.Stage.parse('hyper_params,:x')
 
 
 def test_stop_exits_75_at_once_without_pooling(tmp_path, stub):
@@ -405,6 +431,63 @@ def test_the_dataset_comparison_is_unchanged():
         committed['experiment_name'].tolist()
 
 
+HYPER_PORT = ['bike_mclmc_ev100.0_0.05_r1', 'bike_mclmc_ev0.5_0.1_r2',
+              'bike_mclmc_wu200000_r1', 'bike_mclmc_trust2.0_r3',
+              'bike_de_r1']
+
+
+def test_the_hyper_params_comparison_pools_each_grid_point(tmp_path,
+                                                          capsys):
+    """``hyper_params``: the JAX rows are 24 grid points of three seeds,
+    the ``_rN`` suffix stripped and ``ev100.0_0.05``-style names whole. A
+    port study of five of the real rows, one moved outside and the NUTS
+    baseline absent: each run held against its own grid point's three
+    seeds on both tables, no row for a group the port lacks, the counts by
+    metric and by sweep."""
+    jax = pd.read_csv(ROOT / 'aggr_results' / 'aggr_hyper_params.csv')
+    counts = jax['experiment_name'].map(tc.group_of).value_counts()
+    assert len(counts) == 24 and set(counts) == {3}
+    assert {'bike_mclmc_ev100.0_0.05', 'bike_mclmc_ev0.5_0.1', 'bike_de',
+            'bike_nuts_baseline'} <= set(counts.index)
+    assert tc.metrics_of(jax) == SIX
+    port = jax[jax['experiment_name'].isin(HYPER_PORT)].copy()
+    moved = port['experiment_name'] == 'bike_mclmc_wu200000_r1'
+    port.loc[moved, 'L_mean'] *= 10
+    df, lines = tc.report(port, jax, by_sweep=True)
+    pred = df[df['table'] == 'predictive']
+    assert sorted(set(pred['experiment_name'])) == sorted(HYPER_PORT)
+    assert sorted(set(pred['group'])) == sorted(
+        tc.group_of(n) for n in HYPER_PORT)
+    assert not df['group'].str.contains('nuts').any()
+    assert (df['jax_n'] == 3).all()
+    ev100 = pred[pred['group'] == 'bike_mclmc_ev100.0_0.05']
+    want = jax[jax['experiment_name'].str.startswith(
+        'bike_mclmc_ev100.0_0.05_r')]['step_size_mean']
+    assert ev100[ev100['metric'] == 'step_size_mean']['jax_mean'].iloc[0] \
+        == pytest.approx(want.mean())
+    out = pred[pred['verdict'] == 'outside']
+    assert out[['experiment_name', 'metric']].values.tolist() == [
+        ['bike_mclmc_wu200000_r1', 'L_mean']]
+    # the DE arm's L is NaN in every JAX row: no interval
+    assert pred[(pred['group'] == 'bike_de')
+                & (pred['metric'] == 'L_mean')]['verdict'].tolist() == [
+        'no interval']
+    sweeps = [line for line in lines if line.startswith('by sweep: ')]
+    assert len(sweeps) == 2
+    assert sweeps[0] == ('by sweep: bike_de 0 of 5 (0.2); bike_mclmc_ev 0 '
+                         'of 12 (0.6); bike_mclmc_trust 0 of 6 (0.3); '
+                         'bike_mclmc_wu 1 of 6 (0.3)')
+    assert tc.main(['hyper_params', '--port', str(_write(tmp_path, port)),
+                    '--by-sweep']) == 0
+    assert 'by sweep: bike_de' in capsys.readouterr().out
+
+
+def _write(tmp_path, df) -> Path:
+    path = tmp_path / 'aggr_hyper_params.csv'
+    df.to_csv(path, index=False)
+    return path
+
+
 def test_jobs_side_by_side(tmp_path, stub):
     """``experiments/torch_study_side_by_side.sh``: one loop per spec,
     started together (a ``:tpu`` spec with ``--tpu-arithmetic``), each
@@ -486,3 +569,13 @@ def test_the_mixed_studies_timeouts_fit_protein_at_40000_rows():
     sampling = (50_000 + 10_000) / 100
     for study in ('diagnostics', 'complexity', 'datasize'):
         assert tq.JOB_TIMEOUT_S[study] >= 1.5 * (warm_start + sampling)
+
+
+def test_hyper_params_timeout_fits_the_largest_warm_up_budget():
+    """``hyper_params``' ``wu200000`` jobs: 200,000 tuner and 10,000
+    sampling steps at 100 steps/s after a bikesharing warm start of 500
+    epochs of 267 batches at 3.6 ms (a consumer reuses its provider's),
+    with room for a host 1.5x slower."""
+    warm_start = 500 * math.ceil(0.7 * 12_165 / 32) * 3.6e-3
+    sampling = (200_000 + 10_000) / 100
+    assert tq.JOB_TIMEOUT_S['hyper_params'] >= 1.5 * (warm_start + sampling)

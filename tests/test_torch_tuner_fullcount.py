@@ -66,11 +66,12 @@ def warm_start(rng: int, root: Path) -> Path:
 
 
 def port_tune(members: Path, rng: int, config: str = CONFIG,
-              arm: dict = ARM, extra=()) -> subprocess.Popen:
+              arm: dict = ARM, extra=(), steps: int = STEPS
+              ) -> subprocess.Popen:
     """The port's tuner on ``members``, in a process of its own."""
     cmd = [sys.executable, str(ROOT / 'experiments' / 'torch_tune_members.py'),
            '--config', str(ROOT / config), '--members', str(members),
-           '--steps', str(STEPS), '--set', f'rng={rng}', '--device', 'cpu',
+           '--steps', str(steps), '--set', f'rng={rng}', '--device', 'cpu',
            *extra]
     for key, value in arm.items():
         cmd += ['--set', f'{key}={value}']
@@ -80,7 +81,7 @@ def port_tune(members: Path, rng: int, config: str = CONFIG,
 
 
 def jax_tune(members: Path, rng: int, root: Path, config: str = CONFIG,
-             arm: dict = ARM):
+             arm: dict = ARM, steps: int = STEPS):
     """The JAX package's tuner on ``members`` with the config's knobs: (ε,
     L) per chain."""
     import jax
@@ -100,7 +101,7 @@ def jax_tune(members: Path, rng: int, root: Path, config: str = CONFIG,
     logdensity = trainer.bayes.logdensity_fn(x, y)
     s = cfg.training.sampler
     tcfg = TuningConfig(
-        warmup_steps=STEPS, step_size_init=s.step_size_init,
+        warmup_steps=steps, step_size_init=s.step_size_init,
         desired_energy_var_start=s.desired_energy_var_start,
         desired_energy_var_end=s.desired_energy_var_end,
         trust_in_estimate=s.trust_in_estimate,
@@ -198,3 +199,85 @@ def test_feasibility_energy_tuners_from_the_same_members(tmp_path, arm):
     print(json.dumps({'arm': arm, **record}))
     for name, rec in record.items():
         assert rec['collapsed'] >= 10, (name, rec)
+
+
+COMPLEXITY = 'configs/ablations/complexity_bike_mclmc.yaml'
+COMPLEXITY_RNG = 1
+# 50,000 steps of 12 chains at dim 5,426 over bikesharing's 8,515 training
+# rows take the port about 6.5 hours on one CPU thread (0.47 s a step):
+# the width check runs a fifth of the budget, with the same phase ratios
+# (8,000 + 1,000 + 1,000), on both sides
+WIDE_STEPS = 10_000
+
+
+def complexity_members(width: int, root: Path, rng: int = COMPLEXITY_RNG
+                       ) -> Path:
+    """The port's warm start of ``complexity_bike_mclmc.yaml`` at hidden
+    width ``width`` (three layers) for seed ``rng``, at the TPU's one
+    bfloat16 pass as the study ran on the card: the run directory."""
+    from mile_tpu_torch.config import Config
+    from mile_tpu_torch.train.trainer import BDETrainer
+    from mile_tpu_torch.utils import precision
+
+    (cfg,) = Config.from_file(ROOT / COMPLEXITY)
+    tag = 'x'.join([str(width)] * 3)
+    cfg = cfg.replace(**{'saving_dir': str(root), 'rng': rng,
+                         'experiment_name': f'bike_mclmc_{tag}_r{rng}',
+                         'model.hidden_structure': [width] * 3 + [2]})
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    precision.set_none_precision('bfloat16')
+    try:
+        trainer = BDETrainer(cfg, device='cpu')
+        trainer.train_warmstart()
+    finally:
+        precision.set_none_precision('float32')
+        torch.set_num_threads(prev)
+    return trainer.exp_dir
+
+
+def width_check(members: Path, width: int, root: Path,
+                steps: int = WIDE_STEPS) -> dict:
+    """Three tuners from the same ``complexity`` members: the JAX package's
+    and the port's in exact float32, and the port's at the one pass. Per
+    chain ε and L, their means with standard errors, and the paired
+    differences of the port's exact tuner from the JAX package's."""
+    # the config's tuner precision is exact float32; --tpu-arithmetic
+    # makes it None, the one pass
+    over = {'model.hidden_structure': [width] * 3 + [2]}
+    procs = {'port_exact': port_tune(members, COMPLEXITY_RNG, COMPLEXITY,
+                                     over, steps=steps),
+             'port_one_pass': port_tune(members, COMPLEXITY_RNG, COMPLEXITY,
+                                        over, ['--tpu-arithmetic'],
+                                        steps=steps)}
+    out = {'jax_exact': jax_tune(members, COMPLEXITY_RNG, root, COMPLEXITY,
+                                 over, steps=steps)}
+    for name, proc in procs.items():
+        stdout, _ = proc.communicate()
+        assert proc.returncode == 0
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        out[name] = (np.asarray(rec['step_size']), np.asarray(rec['L']))
+    record = {'width': width, 'steps': steps}
+    for name, (eps, L) in out.items():
+        record[name] = {'step_size': eps.tolist(), 'L': L.tolist(),
+                        'step_size_mean_se': list(mean_se(eps)),
+                        'L_mean_se': list(mean_se(L))}
+    want, got = out['jax_exact'], out['port_exact']
+    record['paired_diff'] = {
+        name: list(mean_se(got[i] - want[i]))
+        for i, name in enumerate(('step_size', 'L'))}
+    return record
+
+
+@pytest.mark.parametrize('width', (16, 48))
+def test_complexity_width_tuners_from_the_same_members(tmp_path, width):
+    """``complexity``'s MCLMC ε and L at width 48 (dim 5,426, above
+    ``ess_params_limit``) against width 16 (dim 786, below it): the port's
+    exact tuner agrees with the JAX package's from the same members."""
+    members = complexity_members(width, tmp_path)
+    record = width_check(members, width, tmp_path)
+    print(json.dumps(record))
+    for name in ('step_size', 'L'):
+        dm, dse = record['paired_diff'][name]
+        assert np.isfinite(record['port_exact'][name]).all()
+        assert abs(dm) < 3 * dse, (name, record['paired_diff'])
