@@ -44,9 +44,11 @@ CPU.
 
 The NUTS path (``configs/illustrative_airfoil_nuts.yaml``, full width,
 tree depth 10, step counts cut to ``NUTS_CUT``) runs through
-``BDETrainer`` too, with its tree statistics, rates and a profiled draw;
-one NUTS step on the card is held against the same step on the CPU with
-the same injected draws; and a short HMC run follows. That path runs no
+``BDETrainer`` too, with its tree statistics, rates and a profiled draw
+(its leaves graphed); each phase's leaves are replayed from the NUTS
+kernel's CUDA graph, and one NUTS step on the card (graphed) is held
+against the same step on the CPU (eager) with the same injected draws;
+and a short HMC run follows. That path runs no
 hand-written kernel (the JAX package's NUTS/HMC is plain XLA). The kernels
 are timed at each of ``TIMED_SHAPES``.
 
@@ -111,7 +113,10 @@ and one cut job of each mixed study's MCLMC or DE half (the deep-8 FCN on
 energy, the DE arm at width 48, protein at 5,000 rows), pooled and
 compared with both of the script's tables (its predictive metrics and the
 chains' diagnostics), K1 and K3 against their plain versions at
-``MIXED_SHAPES``. The catalogue's cut sonar job is pooled and compared
+``MIXED_SHAPES``; with them the datasize study's NUTS job at 5,000 rows,
+cut to ``CATALOG_NUTS_CUT``, reusing the warm start of its MCLMC provider
+run before it in the same root, compared also on the third table (the
+trees' acceptance, leapfrog steps and divergences). The catalogue's cut sonar job is pooled and compared
 through the classification metric set (LPPD, accuracy, ε, L), and its two
 cut ``hyper_params`` jobs through the regression set against the three
 JAX seeds of their grid points. Every comparison also checks the
@@ -439,7 +444,8 @@ MESH_WS_RTOL = 1e-3
 # counts cut in memory as CUT cuts the main path: the warm start to 2
 # epochs, the tuner to 100 steps, sampling to 100 steps at the config's
 # thinning; the NUTS job (depth capped at 8 by the catalogue) to 6
-# adaptation steps and 2 draws. Three jobs reuse a provider's warm start.
+# adaptation steps and 8 draws (the fewest for which the diagnostics take
+# a split R-hat). Three jobs reuse a provider's warm start.
 CATALOG_RESULTS = RESULTS / 'catalog'
 CATALOG_JOBS = ('tabular_classif/sonar_mclmc_r1',
                 'hyper_params/bike_mclmc_ev0.5_0.1_r1',
@@ -456,7 +462,7 @@ CATALOG_CUT = {'training.warmstart.max_epochs': 2,
                'training.sampler.n_samples': 100}
 CATALOG_NUTS_CUT = {'training.warmstart.max_epochs': 2,
                     'training.sampler.warmup_steps': 6,
-                    'training.sampler.n_samples': 2}
+                    'training.sampler.n_samples': 8}
 # The runner's fault contract with real CUDA errors: this script run again
 # with --catalog-fault-worker MODE ROOT, its trainer replaced by one that
 # indexes out of range on the card (a device-side assert), three times
@@ -499,13 +505,21 @@ MIXED_SHAPES = {'diag_mclmc_energy_r1': (12, 450),
                 'protein_mclmc_n5000_r1': (12, 738)}
 DIAGNOSTICS = ['mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
                'fs_ess', 'fs_split_rhat']
+# and the datasize study's NUTS job at 5,000 rows (depth 8), cut to
+# CATALOG_NUTS_CUT, after its MCLMC provider in the same root, whose warm
+# start it reuses: pooled and compared with the third table, the trees'
+# statistics
+QUEUE_NUTS_JOB, QUEUE_NUTS_PROVIDER = ('protein_nuts_n5000_r1',
+                                       'protein_mclmc_n5000_r1')
+NUTS_STATS = ['mean_acceptance_rate', 'mean_num_integration_steps',
+              'n_divergent']
 # The dataset jobs, the feasibility pair and the mixed studies' jobs go
 # through the loop as one stage of five studies: one runner process (a
 # runner takes about 13 s to reach the card; one stage a study made the
 # phase 236 s)
 QUEUE_STAGE = ('dataset,feasibility,' + ','.join(MIXED_STUDIES),
                '^(uci_mclmc_[a-z]+_r1|feas_(mclmc|tuned)_energy|'
-               + '|'.join(MIXED_SHAPES) + ')$')
+               + '|'.join([*MIXED_SHAPES, QUEUE_NUTS_JOB]) + ')$')
 # The catalogue phase's two cut hyper_params jobs (the energy-variance
 # point that provides its seed's warm start, and a trust value reusing it)
 # pooled and compared through both tables against the three JAX seeds
@@ -549,8 +563,8 @@ AB_WIDTH, AB_SHAPE = 512, (12, 592_386)
 AB_WARMUP, AB_TIMED = 30, 2
 AB_TIMEOUT_S = 900
 # The NUTS timing scripts (no hand-written kernel) at tree depth 10, the
-# step counts cut: a depth-10 step is up to 1023 batched leaves of about 5
-# ms of host time each on the card (the NUTS path's), so 3 adaptation
+# step counts cut: a depth-10 step is up to 1023 batched leaves (about 5
+# ms of host time each on the card eagerly, the NUTS path's), so 3 adaptation
 # steps (of 500) run twice, and 3 adaptation steps (of 100) and 2 draws
 # (of 200)
 NUTS_SCRIPTS = {'torch_time_warmup.py': ['3', '8'],
@@ -2073,6 +2087,10 @@ Step by step: each card step is held against the same step taken on
                    f'{int(np.sum(result.info["is_divergent"]))}')
         print(f'  tuned step_size {np.array2string(result.tuned["step_size"], precision=6)}')
         (warm_k, warm_i), (samp_k, samp_i) = kernels.items()
+        self.check(warm_k.graphed and samp_k.graphed,
+                   f'NUTS leaves replayed from a CUDA graph: adaptation '
+                   f'{warm_k.graphed} ({warm_k.leaf_steps} leaves), sampling '
+                   f'{samp_k.graphed} ({samp_k.leaf_steps} leaves)')
         phases = {'warmup': self._tree_stats(warm_k, warm_i,
                                              result.seconds['warmup']),
                   'sampling': self._tree_stats(samp_k, samp_i,
@@ -2147,10 +2165,11 @@ Step by step: each card step is held against the same step taken on
                    f'the chains moved up to {float(moved.max()):.2e}')
 
     def _nuts_profile(self, trainer, result):
-        """Where a NUTS draw's time goes: one draw at the tuned parameters
-        and NUTS_PROFILE_DEPTH under the profiler (the path has run every
-        operation of it already): wall and device time, the device's busy
-        share, kernels per batched leaf, host syncs and their time."""
+        """Where a NUTS draw's time goes on the main path, its leaves
+        replayed from the kernel's CUDA graph: one draw at the tuned
+        parameters and NUTS_PROFILE_DEPTH to capture the graph, then one
+        under the profiler: wall and device time, the device's busy share,
+        kernels per batched leaf, host syncs and their time."""
         torch = self.torch
         from mile_tpu_torch.mcmc import nuts
         from mile_tpu_torch.utils.precision import matmul_precision
@@ -2171,13 +2190,17 @@ Step by step: each card step is held against the same step taken on
                 with matmul_precision('float32'):
                     state, out['info'] = kernel(state, eps, imm)
 
+            draw()                              # captures the leaf's graph
+            syncs = kernel.host_syncs
             wall_us, busy, rows, card = self._profiled(draw)
             leaves = int(out['info'].num_integration_steps.max())
             self.timings['nuts_profile'] = {
-                'max_depth': NUTS_PROFILE_DEPTH, 'wall_ms': wall_us / 1e3, 'device_ms': busy / 1e3,
+                'leaf': 'graphed' if kernel.graphed else 'eager',
+                'max_depth': NUTS_PROFILE_DEPTH, 'wall_ms': wall_us / 1e3,
+                'device_ms': busy / 1e3,
                 'device_busy_share': busy / wall_us,
                 'batched_leaves': leaves,
-                'host_syncs': kernel.host_syncs,
+                'host_syncs': kernel.host_syncs - syncs,
                 'host_sync_ms': self.sync_us / 1e3,
                 'kernels': sum(r[1] for r in rows),
                 'kernels_per_leaf': sum(r[1] for r in rows) / max(leaves, 1),
@@ -3395,8 +3418,10 @@ Step by step: each card step is held against the same step taken on
         lines = proc.stdout.strip().splitlines()
         head = (lines.index('Chain diagnostics')
                 if 'Chain diagnostics' in lines else len(lines))
+        tail = lines.index('NUTS') if 'NUTS' in lines else len(lines)
         last = ([line for line in lines[:head] if line] or [''])[-1]
-        diag_last = lines[-1] if head < len(lines) else ''
+        diag_last = ([line for line in lines[head + 1:tail] if line]
+                     or [''])[-1]
         diag = None if df is None else df[df['table'] == 'diagnostics']
         count = (r'\d+ of \d+ values differ.*' if 'values differ' in last
                  else r'\d+ of \d+ outside their 95 % intervals \(.*\)')
@@ -3543,22 +3568,28 @@ Step by step: each card step is held against the same step taken on
 
     def _queue_mixed(self, run: dict) -> dict:
         """One cut job of each mixed study's MCLMC or DE half
-        (MIXED_SHAPES) of ``run``: every job ok, K1 and K3 launched 3 and
-        1 times a step at MIXED_SHAPES, each study pooled and compared
-        with both tables of ``torch_compare_study.py``; K1 and K3 against
-        their plain versions at those shapes. Returns each job's
-        record."""
+        (MIXED_SHAPES) and datasize's cut NUTS job (QUEUE_NUTS_JOB) of
+        ``run``: every job ok, K1 and K3 launched 3 and 1 times a step at
+        MIXED_SHAPES, each study pooled and compared with both tables of
+        ``torch_compare_study.py`` (datasize also with the NUTS table); K1
+        and K3 against their plain versions at those shapes. Returns each
+        job's record."""
         cat = self._experiments('torch_run_catalog')
         records = self._queue_through(
-            run, 'one cut job of each mixed study', list(MIXED_SHAPES))
+            run, 'one cut job of each mixed study and datasize\'s NUTS job',
+            [*MIXED_SHAPES, QUEUE_NUTS_JOB])
         per_job = {name: self._queue_job_shape(name, records, shape)
                    for name, shape in MIXED_SHAPES.items()
                    if name in records}
+        if QUEUE_NUTS_JOB in records:
+            per_job[QUEUE_NUTS_JOB] = self._queue_nuts_job(
+                records[QUEUE_NUTS_JOB])
         by_key = {j.name: j for j in cat.build_jobs()}
         for study in MIXED_STUDIES:
             proc, table, last = self._compare(
                 study, QUEUE_AGGR / f'aggr_{study}.csv')
-            jobs = [n for n in MIXED_SHAPES if by_key[n].study == study]
+            jobs = sorted(n for n in [*MIXED_SHAPES, QUEUE_NUTS_JOB]
+                          if by_key[n].study == study)
             self.check(proc.returncode == 0 and table is not None
                        and sorted(set(table['experiment_name'])) == jobs
                        and len(table) == 6 * len(jobs)
@@ -3566,11 +3597,69 @@ Step by step: each card step is held against the same step taken on
                        f'torch_compare_study.py {study} (exit '
                        f'{proc.returncode}): {jobs} against three JAX '
                        f'seeds on six metrics: {last!r}')
+            if QUEUE_NUTS_JOB in jobs:
+                self._compare_nuts(study, proc)
         gen = self.torch.Generator().manual_seed(17)
         for shape in sorted(set(MIXED_SHAPES.values())):
             self._k1_check(*shape)
             self._k3_check(*shape, gen)
         return {'jobs': per_job}
+
+    def _queue_nuts_job(self, record: dict) -> dict:
+        """The cut NUTS job of ``QUEUE_STAGE``: no K1/K3 launch, and the
+        warm start of its provider in the same root reused (its
+        ``training.log`` says so, and its config names the provider);
+        its entry of the phase's timings."""
+        import yaml
+
+        exp = QUEUE_RESULTS / 'datasize' / QUEUE_NUTS_JOB
+        provider = QUEUE_RESULTS / 'datasize' / QUEUE_NUTS_PROVIDER
+        config = yaml.safe_load((exp / 'config.yaml').read_text())
+        log = (exp / 'training.log').read_text()
+        reused = (config['training']['warmstart']['warmstart_exp_dir']
+                  == str(provider)
+                  and f'reusing warmstart checkpoints from '
+                  f'{provider / "warmstart"}' in log)
+        sampler = config['training']['sampler']
+        self.check(record['launches'] == {'isokinetic_momentum': 0,
+                                          'partial_refresh': 0}
+                   and reused and sampler['name'] == 'nuts'
+                   and sampler['max_num_doublings'] == 8,
+                   f'{QUEUE_NUTS_JOB} (NUTS, depth '
+                   f'{sampler["max_num_doublings"]}, '
+                   f'{sampler["warmup_steps"]} + {sampler["n_samples"]} '
+                   f'steps): K1/K3 {record["launches"]} (none on NUTS), the '
+                   f'warm start of {QUEUE_NUTS_PROVIDER} reused: {reused}, '
+                   f'{record["wall_s"]} s')
+        return {'wall_s': record['wall_s'], 'reused_warmstart': reused,
+                'launches': record['launches']}
+
+    def _compare_nuts(self, study: str, proc):
+        """The NUTS table of ``_compare``'s run on ``study``: the NUTS job
+        alone, on NUTS_STATS, against three JAX seeds, every value finite,
+        and its count line."""
+        import numpy as np
+        import pandas as pd
+
+        df = pd.read_csv(RESULTS / f'queue_compare_{study}.csv')
+        nuts = df[df['table'] == 'nuts']
+        lines = proc.stdout.strip().splitlines()
+        last = lines[-1] if 'NUTS' in lines else ''
+        self.check(nuts['experiment_name'].unique().tolist()
+                   == [QUEUE_NUTS_JOB]
+                   and nuts['metric'].tolist() == NUTS_STATS
+                   and (nuts['jax_n'] == 3).all()
+                   and bool(np.isfinite(nuts['port']).all())
+                   and re.fullmatch(r'\d of 3 outside their 95 % intervals '
+                                    r'\(0\.2 expected by chance.*\)', last)
+                   is not None,
+                   f'torch_compare_study.py {study}: the NUTS table holds '
+                   f'{nuts["experiment_name"].unique().tolist()} on '
+                   f'{nuts["metric"].tolist()} (want {NUTS_STATS}), '
+                   f'finite: '
+                   + ', '.join(f'{r.metric} {r.port:.4g}'
+                               for r in nuts.itertuples())
+                   + f'; {last!r}')
 
     def _queue_drill(self, tq) -> list:
         """The loop's fault drill and STOP (``catalog_queue``'s first
@@ -4720,8 +4809,8 @@ def catalog_fault_worker(mode: str, root: str, extra=()) -> int:
 
 def catalog_cut_worker(argv: list) -> int:
     """The catalogue runner with ``argv``, every job's step counts cut to
-    CATALOG_CUT (the runner of the catalog_queue phase's dataset jobs).
-    Returns the runner's exit code."""
+    CATALOG_CUT, a NUTS job's to CATALOG_NUTS_CUT (the runner of the
+    catalog_queue phase's stage). Returns the runner's exit code."""
     import dataclasses
 
     sys.path.insert(0, str(ROOT))
@@ -4730,7 +4819,9 @@ def catalog_cut_worker(argv: list) -> int:
 
     every_job = cat.build_jobs
     cat.build_jobs = lambda: [
-        dataclasses.replace(j, overrides={**j.overrides, **CATALOG_CUT})
+        dataclasses.replace(j, overrides={
+            **j.overrides,
+            **(CATALOG_NUTS_CUT if '_nuts_' in j.name else CATALOG_CUT)})
         for j in every_job()]
     return cat.main(argv)
 

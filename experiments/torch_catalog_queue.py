@@ -69,7 +69,12 @@ after warm starts no longer than protein's, up to about 2,600 s alone.
 ``hyper_params`` (bikesharing, FCN [16, 16, 16, 2]) runs its warm-up
 budget sweep up to 200,000 tuner and 10,000 sampling steps, 2,100 s at
 100 steps/s, after the warm start of its seed's provider (267 batches an
-epoch, up to 480 s): 7,200 s as well.
+epoch, up to 480 s): 7,200 s as well. ``nuts_ta`` (bikesharing, FCN
+[16, 16, 16, 2], NUTS at tree depth 10 after the warm start of its
+seed's ``complexity`` provider) takes up to 1,023 batched leaves a draw
+over 100 adaptation steps and 1,000 draws, 1.13 M leaves: 8,500 s at the
+132 leaves/s measured for the eager airfoil leaf (``PERF.md``), and with
+room for a host 1.5x slower 14,400 s.
 
 ``--tpu-arithmetic`` is passed on to every runner: its jobs run at the
 TPU's one bfloat16 pass wherever their precision is None (see the
@@ -104,7 +109,7 @@ DEFAULT_JOB_TIMEOUT_S = 1800.0
 JOB_TIMEOUT_S = {'dataset': 7200.0, 'dtype_ab': 7200.0,
                  'feasibility': 7200.0, 'diagnostics': 7200.0,
                  'complexity': 7200.0, 'datasize': 7200.0,
-                 'hyper_params': 7200.0}
+                 'hyper_params': 7200.0, 'nuts_ta': 14400.0}
 
 
 @dataclasses.dataclass

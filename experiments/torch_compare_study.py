@@ -61,8 +61,18 @@ density underflows (12 of the 18 ``dataset`` rows in each package), so it
 reads the first draw and not the chains. A diagnostic the JAX CSV has and
 the port's lacks raises a ``KeyError``, as a metric does.
 
-With ``--out`` both tables go to one CSV, told apart by its ``table``
-column (``predictive`` or ``diagnostics``).
+NUTS. The trees' own statistics, ``NUTS_STATS`` (``mean_acceptance_rate``,
+``mean_num_integration_steps``: leapfrog steps a draw, and
+``n_divergent``: divergent steps over all chains and draws, as
+``pool_results.py`` folds them from ``samples/info.pkl``), are compared
+the same way in a third table with its own count line by metric, over
+the port rows whose sampler is NUTS or HMC only; a study whose port rows
+have none (all MCLMC or DE) has no third table and needs none of its
+columns. NUTS rows stay in the first table for ``step_size_mean``; their
+``L_mean`` is empty in both packages, which reads as no interval.
+
+With ``--out`` the tables go to one CSV, told apart by its ``table``
+column (``predictive``, ``diagnostics`` or ``nuts``).
 
 The script reports and gates nothing: it exits 0 whatever the verdicts.
 It imports numpy and pandas only, so it runs anywhere.
@@ -83,6 +93,9 @@ METRICS = ('lppd', 'rmse', 'acc', 'cal_error', 'coverage_0.9',
            'step_size_mean', 'L_mean')
 DIAGNOSTICS = ('mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
                'fs_ess', 'fs_split_rhat')
+NUTS_STATS = ('mean_acceptance_rate', 'mean_num_integration_steps',
+              'n_divergent')
+TREE_SAMPLERS = ('nuts', 'hmc')
 SEED = re.compile(r'_r\d+$')
 SWEEP = re.compile(r'\d[\d.x_]*$')
 # Student's t, 0.975 quantile, by degrees of freedom
@@ -127,6 +140,14 @@ def metrics_of(jax: pd.DataFrame, candidates=METRICS) -> list[str]:
 def one_run_a_job(jax: pd.DataFrame) -> bool:
     """Whether no group of the JAX study has two rows (value mode)."""
     return int(jax['experiment_name'].map(group_of).value_counts().max()) < 2
+
+
+def tree_rows(port: pd.DataFrame) -> pd.DataFrame:
+    """The port rows whose sampler is NUTS or HMC (none when the pooled
+    CSV does not name its samplers)."""
+    if 'training.sampler.name' not in port.columns:
+        return port.iloc[:0]
+    return port[port['training.sampler.name'].isin(TREE_SAMPLERS)]
 
 
 def _check_columns(port: pd.DataFrame, metrics) -> None:
@@ -275,26 +296,30 @@ def summary_sweeps(df: pd.DataFrame) -> str:
 
 def report(port: pd.DataFrame, jax: pd.DataFrame, by_sweep: bool = False
            ) -> tuple[pd.DataFrame, list[str]]:
-    """Both tables of a study: (the comparison, its ``table`` column
-    naming ``predictive`` or ``diagnostics`` rows; the printed lines).
-    The diagnostics table is left out when the JAX study has none.
+    """The tables of a study: (the comparison, its ``table`` column
+    naming ``predictive``, ``diagnostics`` or ``nuts`` rows; the printed
+    lines). A table is left out when the JAX study has none of its
+    columns, and the NUTS table also when no port row is NUTS or HMC.
     ``by_sweep``: each seeds-mode count line is followed by the count by
     sweep."""
     values = one_run_a_job(jax)
     frames, lines = [], []
-    for name, candidates in (('predictive', METRICS),
-                             ('diagnostics', DIAGNOSTICS)):
+    for name, candidates, rows, title in (
+            ('predictive', METRICS, port, None),
+            ('diagnostics', DIAGNOSTICS, port, 'Chain diagnostics'),
+            ('nuts', NUTS_STATS, tree_rows(port), 'NUTS')):
         metrics = metrics_of(jax, candidates)
-        if not metrics:
+        if not metrics or (name == 'nuts' and rows.empty):
             continue
-        if name == 'diagnostics':
-            lines += ['', 'Chain diagnostics', '']
+        if title:
+            lines += ['', title, '']
         if values:
-            df = compare_values(port, jax, metrics)
+            df = compare_values(rows, jax, metrics)
             lines += [table_values(df), summary_values(df)]
         else:
-            df = compare(port, jax, metrics)
-            lines += [table(df), summary(df, by_metric=name == 'diagnostics')]
+            df = compare(rows, jax, metrics)
+            lines += [table(df),
+                      summary(df, by_metric=name != 'predictive')]
             if by_sweep:
                 lines.append(summary_sweeps(df))
         frames.append(df.assign(table=name))

@@ -54,7 +54,9 @@ float32 as in the JAX package. A job whose overrides do not name
 defaulted to None (the ``dtype_ab`` rows, 30cdad6) or did not exist yet
 (``dataset``, ``tabular_classif``, ``feasibility``), so their tuners ran
 at the chip's default. Each such job's ``config.yaml`` records the
-setting (``none_precision: bfloat16``), and so does its pooled row.
+setting (``none_precision: bfloat16``), and so does its pooled row. The
+uncapped NUTS jobs also get the target acceptance of 0.8 that their rows
+record (``TPU_ROWS_NUTS``), where the default has been 0.9 since 06d12c2.
 
 Runs on the GPU unless ``--device cpu`` is given; without a CUDA device it
 raises rather than run on the CPU unasked. There is no compilation cache
@@ -120,6 +122,15 @@ EXIT_FAULT, EXIT_STOP = 70, 75
 # docstring), given under --tpu-arithmetic to every job that names none.
 TPU_ROWS_WARMUP = {'training.sampler.warmup_matmul_precision': None}
 
+# The NUTS target acceptance of the JAX rows of the uncapped NUTS jobs
+# (``complexity`` at widths 8-32, ``diagnostics``, ``hyper_params``'
+# baseline): those rows were taken at 0.8, before 06d12c2 moved the
+# default to 0.9, and record it. The depth-capped jobs' rows (``datasize``,
+# ``complexity`` at width 48) record 0.9 and ``nuts_ta`` names its own, so
+# under --tpu-arithmetic this goes to every NUTS job that names neither
+# the target acceptance nor a depth cap.
+TPU_ROWS_NUTS = {'training.sampler.target_acceptance': 0.8}
+
 
 @dataclasses.dataclass
 class Job:
@@ -145,14 +156,23 @@ class Job:
     def config(self, root: Path, tpu_arithmetic: bool = False):
         """The base config with the job's directory, its overrides and its
         warm-start provider, as dotted-path updates; ``tpu_arithmetic``:
-        the tuner's precision of the JAX rows where the job names none."""
+        the tuner's precision of the JAX rows where the job names none,
+        and their target acceptance for the NUTS jobs of
+        ``TPU_ROWS_NUTS``."""
         from mile_tpu_torch.config import Config
 
+        from mile_tpu_torch.config.training import Sampler
+
         (cfg,) = Config.from_file(ROOT / self.base)
+        rows = {}
+        if tpu_arithmetic:
+            rows.update(TPU_ROWS_WARMUP)
+            if (cfg.training.sampler.name == Sampler.NUTS
+                    and not {*TPU_ROWS_NUTS, *NUTS_DEPTH_CAP}
+                    & set(self.overrides)):
+                rows.update(TPU_ROWS_NUTS)
         updates = {'saving_dir': str(root / self.study),
-                   'experiment_name': self.name,
-                   **(TPU_ROWS_WARMUP if tpu_arithmetic else {}),
-                   **self.overrides}
+                   'experiment_name': self.name, **rows, **self.overrides}
         ws = self.warmstart_dir(root)
         if ws is not None:
             updates['training.warmstart.warmstart_exp_dir'] = str(ws)

@@ -4,6 +4,7 @@ JAX package builds its models from: Dense, Conv, Embed and
 MultiHeadDotProductAttention)."""
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Callable, Mapping, NamedTuple, Optional
@@ -180,6 +181,80 @@ def product(a: torch.Tensor, b: torch.Tensor,
     return torch.baddbmm(bias, a, b)
 
 
+# A Dense kernel's gradient sums over every row: per chain an (in, N) x
+# (N, out) product with a long inner axis, which cuBLAS's batched gemm runs
+# as one small tile a chain when the kernel is small (at 36,000 rows, 12
+# chains and [16, 16, 16, 2] 1.2 ms a call, 83 % of a NUTS leaf's device
+# time on an H100). Inside :func:`split_k_rows`, from SPLIT_K_MIN_ROWS rows
+# on, for a kernel of at most SPLIT_K_MAX_KERNEL entries, the exact
+# product's backward splits the rows into blocks of SPLIT_K_ROWS,
+# multiplies the blocks in one batched gemm and sums their products. Only
+# the NUTS leaf's CUDA graph enters that scope (``mcmc/nuts.py``): there
+# ``experiments/torch_nuts_leaf_rate.py`` measured the split against the
+# plain product at every NUTS study shape: 1.32x at 4,500 rows to 3.99x
+# at 36,000, 0.91x and 1.00x at 537 and 1,052 rows; kernels up to 48 x 48
+# entries, none wider. Run eagerly, the leaf lost by it at 4,500-18,000
+# rows and on bikesharing, and no other path was measured with it.
+SPLIT_K_ROWS = 512
+SPLIT_K_MIN_ROWS = 4096
+SPLIT_K_MAX_KERNEL = 48 * 48
+
+_split_k = False        # inside a split_k_rows() scope
+
+
+@contextlib.contextmanager
+def split_k_rows():
+    """Let a Dense layer take :class:`SplitKProduct` in this scope (see
+    above); outside it every Dense layer takes :func:`product`."""
+    global _split_k
+    prev = _split_k
+    _split_k = True
+    try:
+        yield
+    finally:
+        _split_k = prev
+
+
+def split_k_weight_grad(h: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """``hᵀ · grad`` per chain, ``h`` (C, N, in) and ``grad`` (C, N, out)
+    -> (C, in, out), over blocks of ``SPLIT_K_ROWS`` rows and the rest."""
+    n_chains, n, _ = h.shape
+    blocks = n // SPLIT_K_ROWS
+    full = blocks * SPLIT_K_ROWS
+    hb = h[:, :full].reshape(n_chains * blocks, SPLIT_K_ROWS, -1)
+    gb = grad[:, :full].reshape(n_chains * blocks, SPLIT_K_ROWS, -1)
+    dw = torch.bmm(hb.transpose(1, 2), gb).view(
+        n_chains, blocks, h.shape[-1], grad.shape[-1]).sum(dim=1)
+    if full < n:
+        dw = dw + torch.bmm(h[:, full:].transpose(1, 2), grad[:, full:])
+    return dw
+
+
+class SplitKProduct(torch.autograd.Function):
+    """The exact ``baddbmm(bias, h, w)`` (``bmm`` without a bias) of a
+    Dense layer over many rows, its kernel's gradient by
+    :func:`split_k_weight_grad`; the input's and the bias's gradients as
+    autograd's."""
+
+    @staticmethod
+    def forward(ctx, h, w, bias):
+        ctx.save_for_backward(h, w)
+        ctx.has_bias = bias is not None
+        return torch.bmm(h, w) if bias is None else torch.baddbmm(bias, h, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        h, w = ctx.saved_tensors
+        dh = (torch.bmm(grad, w.transpose(1, 2))
+              if ctx.needs_input_grad[0] else None)
+        dw = (split_k_weight_grad(h, grad)
+              if ctx.needs_input_grad[1] else None)
+        db = (grad.sum(dim=1, keepdim=True)
+              if ctx.has_bias and ctx.needs_input_grad[2] else None)
+        return dh, dw, db
+
+
 def conv(h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
          padding: int, groups: int) -> torch.Tensor:
     """Every convolution of the models, at the scope's arithmetic, as
@@ -195,10 +270,13 @@ def dense(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,
     """The Dense layer ``name`` of every chain: ``h`` (C, N, in) ->
     (C, N, out). A Flax Dense kernel is ``(in, out)``, as ``bmm`` wants."""
     w = leaf_view(theta, layout, f'{name}/kernel')
-    if not use_bias:
-        return product(h, w)
-    return product(h, w, leaf_view(theta, layout, f'{name}/bias')
-                   .unsqueeze(1))
+    bias = (leaf_view(theta, layout, f'{name}/bias').unsqueeze(1)
+            if use_bias else None)
+    if (_split_k and h.dim() == 3 and h.shape[1] >= SPLIT_K_MIN_ROWS
+            and w.shape[-2] * w.shape[-1] <= SPLIT_K_MAX_KERNEL
+            and not _one_pass(h, w) and h.dtype == w.dtype):
+        return SplitKProduct.apply(h, w, bias)
+    return product(h, w, bias)
 
 
 def conv2d(theta: torch.Tensor, h: torch.Tensor, layout: FlatLayout,

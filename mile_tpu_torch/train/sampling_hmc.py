@@ -11,6 +11,9 @@ the adaptation, the re-init and every step see the subspace. With
 does, from the sampling ``Draws`` generator's state as of the last drained
 chunk. With a ``mesh`` the batch and its randomness stay on the mesh's
 first device and the mesh shards the log-density, as in ``run_mclmc``.
+On one CUDA device each NUTS leaf is replayed from a CUDA graph
+(:mod:`mile_tpu_torch.mcmc.nuts`); over a mesh of several entries or
+processes it runs eagerly.
 """
 from __future__ import annotations
 
@@ -100,6 +103,9 @@ def _run_hmc_family(logdensity_and_grad, cfg, generator, init_positions,
         init_positions = init_positions.to(mesh.first)
     n_chains, dim = init_positions.shape
     device = init_positions.device
+    # a mesh of several entries or processes shards the log-density over
+    # them (``BayesianModel.logdensity_fn``): its leaves run eagerly
+    one_device = mesh is None or (mesh.size == 1 and mesh.group is None)
 
     def make_kernel(draws, warmup: bool = False):
         if cfg.name == Sampler.NUTS:
@@ -107,7 +113,7 @@ def _run_hmc_family(logdensity_and_grad, cfg, generator, init_positions,
             if warmup and cfg.warmup_max_num_doublings is not None:
                 depth = cfg.warmup_max_num_doublings
             return nuts.build_kernel(logdensity_and_grad, max_depth=depth,
-                                     draws=draws)
+                                     draws=draws, graph=one_device)
         return hmc.build_kernel(
             logdensity_and_grad,
             num_integration_steps=cfg.num_integration_steps, draws=draws)

@@ -469,3 +469,116 @@ def test_a_job_under_the_tpu_arithmetic_records_it(tmp_path):
     assert 'matmul=bfloat16' in (exp / 'training.log').read_text()
     (row,) = pool_results.pool(root).to_dict('records')
     assert row['none_precision'] == 'bfloat16' and np.isfinite(row['lppd'])
+
+
+# ------------------------------------------- every job at its row's settings
+# What a pooled JAX row records of the settings its sampler read, by
+# sampler: the dotted config paths, as the row's columns name them.
+ROW_SETTINGS = ('training.sampler.name', 'training.sampler.warmup_steps',
+                'training.sampler.n_samples', 'training.sampler.n_chains',
+                'training.sampler.n_thinning',
+                'training.sampler.step_size_init', 'data.datapoint_limit',
+                'model.hidden_structure', 'rng')
+ROW_SETTINGS_BY_SAMPLER = {
+    'nuts': ('training.sampler.target_acceptance',
+             'training.sampler.max_num_doublings',
+             'training.sampler.warmup_max_num_doublings'),
+    'mclmc': ('training.sampler.desired_energy_var_start',
+              'training.sampler.desired_energy_var_end',
+              'training.sampler.trust_in_estimate',
+              'training.sampler.num_effective_samples')}
+ROW_STUDIES = ('tabular_classif', 'hyper_params', 'complexity', 'datasize',
+               'dtype_ab', 'nuts_ta', 'dataset', 'feasibility',
+               'diagnostics')
+# the uncapped NUTS jobs, whose rows were taken at a target acceptance of
+# 0.8 (``cat.TPU_ROWS_NUTS``)
+NUTS_AT_08 = {'complexity': 9, 'diagnostics': 9, 'hyper_params': 3}
+
+
+def _setting(config: dict, path: str):
+    for key in path.split('.'):
+        config = config[key]
+    return config
+
+
+def _recorded(value) -> bool:
+    """An empty cell of a pooled row is a setting it did not record."""
+    return not (value is None or (isinstance(value, float)
+                                  and np.isnan(value)))
+
+
+def _same(mine, recorded) -> bool:
+    if isinstance(mine, list):
+        return str(mine) == str(recorded)
+    if isinstance(mine, str) or isinstance(recorded, str):
+        return str(mine) == str(recorded)
+    return mine is not None and bool(np.isclose(float(mine),
+                                                float(recorded)))
+
+
+def row_mismatches(study: str, root: Path, tpu_arithmetic: bool = True):
+    """(jobs of ``study`` with a JAX row, [(job, setting, the job's value,
+    the row's)] for every recorded setting its sampler reads that the
+    job's config does not give)."""
+    import pandas as pd
+
+    rows = pd.read_csv(ROOT / 'aggr_results' / f'aggr_{study}.csv'
+                       ).set_index('experiment_name')
+    jobs = [j for j in cat.build_jobs()
+            if j.study == study and j.name in rows.index]
+    wrong = []
+    for job in jobs:
+        config = job.config(root, tpu_arithmetic).to_dict()
+        row = rows.loc[job.name]
+        sampler = _setting(config, 'training.sampler.name')
+        for path in ROW_SETTINGS + ROW_SETTINGS_BY_SAMPLER.get(sampler, ()):
+            if path in row.index and _recorded(row[path]) \
+                    and not _same(_setting(config, path), row[path]):
+                wrong.append((job.name, path, _setting(config, path),
+                              row[path]))
+    return jobs, wrong
+
+
+@pytest.mark.parametrize('study', ROW_STUDIES)
+def test_every_job_runs_at_its_rows_settings(study, tmp_path):
+    """Under ``--tpu-arithmetic`` each catalogue job with a pooled JAX row
+    loads with every setting that row records of what its sampler reads:
+    name, warm-up steps, draws, chains, thinning, initial step size, data
+    limit, widths and seed; for NUTS the target acceptance and both depth
+    caps; for MCLMC the energy-variance, trust and ESS knobs."""
+    jobs, wrong = row_mismatches(study, tmp_path)
+    assert jobs
+    assert wrong == []
+
+
+def test_244_jobs_have_a_row_to_hold_them_to(tmp_path):
+    import pandas as pd
+
+    names = {s: set(pd.read_csv(ROOT / 'aggr_results' / f'aggr_{s}.csv')
+                    ['experiment_name']) for s in ROW_STUDIES}
+    assert sum(j.name in names.get(j.study, ()) for j in cat.build_jobs()) \
+        == 244
+
+
+@pytest.mark.parametrize('study', sorted(NUTS_AT_08))
+def test_without_the_tpu_arithmetic_the_nuts_jobs_load_at_0_9(study,
+                                                              tmp_path):
+    """Without ``--tpu-arithmetic`` the uncapped NUTS jobs load as the JAX
+    runner's do, at the default of 0.9, and differ from their rows in the
+    target acceptance alone; the depth-capped and ``nuts_ta`` jobs keep
+    theirs either way."""
+    jobs, wrong = row_mismatches(study, tmp_path, tpu_arithmetic=False)
+    assert {w[1] for w in wrong} == {'training.sampler.target_acceptance'}
+    assert len(wrong) == NUTS_AT_08[study]
+    assert all((w[2], w[3]) == (0.9, 0.8) for w in wrong)
+    by_name = {j.name: j for j in run_catalog.build_jobs()}
+    for job in jobs:
+        if job.name in {w[0] for w in wrong}:
+            assert job.config(tmp_path).to_dict() == by_name[
+                job.name].config(tmp_path).to_dict()
+    for name in ('protein_nuts_n5000_r1', 'bike_nuts_48x48x48_r1',
+                 'bike_nuts_ta95_r1'):
+        (job,) = [j for j in cat.build_jobs() if j.name == name]
+        assert job.config(tmp_path).training.sampler.target_acceptance \
+            == job.config(tmp_path, tpu_arithmetic=True
+                          ).training.sampler.target_acceptance

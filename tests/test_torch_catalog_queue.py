@@ -482,6 +482,76 @@ def test_the_hyper_params_comparison_pools_each_grid_point(tmp_path,
     assert 'by sweep: bike_de' in capsys.readouterr().out
 
 
+DATASIZE_PORT = ['protein_nuts_n5000_r1', 'protein_nuts_n40000_r2',
+                 'protein_nuts_n20000_r3', 'protein_mclmc_n5000_r1']
+
+
+def test_the_nuts_table_holds_the_datasize_nuts_rows(tmp_path, capsys):
+    """``datasize``'s NUTS arm: a port study of three real NUTS rows and
+    one MCLMC row, one NUTS row's leapfrog steps moved to a depth-10
+    tree's. The third table holds the NUTS rows alone against their own
+    grid point's three seeds on the three tree statistics; the first
+    keeps every row, with the NUTS rows' ε compared and their empty L
+    read as no interval."""
+    jax = pd.read_csv(ROOT / 'aggr_results' / 'aggr_datasize.csv')
+    assert tc.metrics_of(jax, tc.NUTS_STATS) == list(tc.NUTS_STATS)
+    port = jax[jax['experiment_name'].isin(DATASIZE_PORT)].copy()
+    moved = port['experiment_name'] == 'protein_nuts_n40000_r2'
+    port.loc[moved, 'mean_num_integration_steps'] = 1023.0
+    df, lines = tc.report(port, jax)
+    assert df['table'].unique().tolist() == ['predictive', 'diagnostics',
+                                             'nuts']
+    nuts = df[df['table'] == 'nuts']
+    assert sorted(set(nuts['experiment_name'])) == sorted(
+        n for n in DATASIZE_PORT if '_nuts_' in n)
+    assert nuts['metric'].unique().tolist() == list(tc.NUTS_STATS)
+    assert (nuts['jax_n'] == 3).all()
+    assert nuts[nuts['verdict'] == 'outside'][
+        ['experiment_name', 'metric']].values.tolist() == [
+        ['protein_nuts_n40000_r2', 'mean_num_integration_steps']]
+    pred = df[df['table'] == 'predictive']
+    assert set(pred['experiment_name']) == set(DATASIZE_PORT)
+    tree = pred[pred['experiment_name'].str.contains('_nuts_')]
+    assert set(tree[tree['metric'] == 'L_mean']['verdict']) == {
+        'no interval'}
+    assert set(tree[tree['metric'] == 'step_size_mean']['verdict']) == {
+        'inside'}
+    title = lines.index('NUTS')
+    assert lines[title - 1:title + 2] == ['', 'NUTS', '']
+    assert lines[-1] == ('1 of 9 outside their 95 % intervals (0.5 '
+                         'expected by chance; mean_num_integration_steps 1)')
+    out = tmp_path / 'compare.csv'
+    path = tmp_path / 'aggr_datasize.csv'
+    port.to_csv(path, index=False)
+    assert tc.main(['datasize', '--port', str(path), '--out', str(out)]) == 0
+    assert 'NUTS' in capsys.readouterr().out.splitlines()
+    assert pd.read_csv(out)['table'].value_counts().to_dict()['nuts'] == 9
+
+
+@pytest.mark.parametrize('study', ['diagnostics', 'hyper_params',
+                                   'datasize'])
+def test_a_study_without_port_nuts_rows_compares_as_before(study):
+    """A port study of MCLMC and DE rows alone, without the tree
+    statistics' columns, where the JAX study has NUTS rows: no
+    ``KeyError``, no third table, and (``diagnostics``, ``hyper_params``)
+    the committed comparison unchanged line for line."""
+    here = ROOT / 'aggr_results_torch' / 'tpu_arithmetic'
+    jax = pd.read_csv(ROOT / 'aggr_results' / f'aggr_{study}.csv')
+    assert tc.metrics_of(jax, tc.NUTS_STATS)
+    port = pd.read_csv(here / f'aggr_{study}.csv')
+    port = port[~port['training.sampler.name'].isin(tc.TREE_SAMPLERS)]
+    port = port.drop(columns=[c for c in tc.NUTS_STATS
+                              if c in port.columns])
+    assert not port.empty and tc.tree_rows(port).empty
+    df, lines = tc.report(port, jax, by_sweep=study == 'hyper_params')
+    assert 'nuts' not in set(df['table']) and 'NUTS' not in lines
+    if study != 'datasize':
+        md = (here / f'compare_{study}.md').read_text()
+        assert md == '\n'.join(lines) + '\n'
+        committed = pd.read_csv(here / f'compare_{study}.csv')
+        assert df['verdict'].tolist() == committed['verdict'].tolist()
+
+
 def _write(tmp_path, df) -> Path:
     path = tmp_path / 'aggr_hyper_params.csv'
     df.to_csv(path, index=False)
@@ -579,3 +649,11 @@ def test_hyper_params_timeout_fits_the_largest_warm_up_budget():
     warm_start = 500 * math.ceil(0.7 * 12_165 / 32) * 3.6e-3
     sampling = (200_000 + 10_000) / 100
     assert tq.JOB_TIMEOUT_S['hyper_params'] >= 1.5 * (warm_start + sampling)
+
+
+def test_nuts_ta_timeout_fits_a_depth_10_job():
+    """``nuts_ta``: 100 adaptation steps and 1,000 draws of up to 1,023
+    batched leaves at the eager airfoil leaf's 132 leaves/s, with room for
+    a host 1.5x slower, not the runner's 1,800 s default."""
+    leaves = (100 + 1_000) * 1_023
+    assert tq.JOB_TIMEOUT_S['nuts_ta'] >= 1.5 * leaves / 132
