@@ -116,7 +116,13 @@ chains' diagnostics), K1 and K3 against their plain versions at
 ``MIXED_SHAPES``; with them the datasize study's NUTS job at 5,000 rows,
 cut to ``CATALOG_NUTS_CUT``, reusing the warm start of its MCLMC provider
 run before it in the same root, compared also on the third table (the
-trees' acceptance, leapfrog steps and divergences). The catalogue's cut sonar job is pooled and compared
+trees' acceptance, leapfrog steps and divergences). Then, through a loop
+of its own under ``--tpu-arithmetic``, the uncapped NUTS arm's cut job
+(``UNCAPPED_NUTS_JOB``: the diagnostics study's deep-8 FCN on energy at
+tree depth 10 and its rows' target acceptance 0.8) after its MCLMC
+provider in the same root: the two settings in its config, its pooled row
+and the sampler config the runtime received, no K1/K3 launch, and all
+three tables. The catalogue's cut sonar job is pooled and compared
 through the classification metric set (LPPD, accuracy, ε, L), and its two
 cut ``hyper_params`` jobs through the regression set against the three
 JAX seeds of their grid points. Every comparison also checks the
@@ -520,6 +526,23 @@ NUTS_STATS = ['mean_acceptance_rate', 'mean_num_integration_steps',
 QUEUE_STAGE = ('dataset,feasibility,' + ','.join(MIXED_STUDIES),
                '^(uci_mclmc_[a-z]+_r1|feas_(mclmc|tuned)_energy|'
                + '|'.join([*MIXED_SHAPES, QUEUE_NUTS_JOB]) + ')$')
+# The uncapped NUTS arm (diagnostics, nuts_ta, complexity at widths 8-32,
+# hyper_params' baseline: tree depth 10, target acceptance 0.8 under the
+# TPU's arithmetic as their rows): the diagnostics study's NUTS job on
+# energy (537 training rows) cut to CATALOG_NUTS_CUT after its MCLMC
+# provider in the same root, through a loop of its own with
+# --tpu-arithmetic, pooled and compared on all three tables. The cut
+# worker appends the sampler settings each run_hmc_family call received
+# to RUNTIME_SAMPLER in its root. A cut run cannot promise a tree deeper
+# than 8, so only the settings are held.
+UNCAPPED_RESULTS = RESULTS / 'queue_uncapped'
+UNCAPPED_AGGR = RESULTS / 'queue_uncapped_aggr'
+UNCAPPED_NUTS_JOB, UNCAPPED_NUTS_PROVIDER = ('diag_nuts_energy_r1',
+                                             'diag_mclmc_energy_r1')
+UNCAPPED_STAGE = ('diagnostics', f'^({UNCAPPED_NUTS_PROVIDER}|'
+                  f'{UNCAPPED_NUTS_JOB})$')
+UNCAPPED_SETTINGS = {'max_num_doublings': 10, 'target_acceptance': 0.8}
+RUNTIME_SAMPLER = 'runtime_sampler.jsonl'
 # The catalogue phase's two cut hyper_params jobs (the energy-variance
 # point that provides its seed's warm start, and a trust value reusing it)
 # pooled and compared through both tables against the three JAX seeds
@@ -3318,32 +3341,36 @@ Step by step: each card step is held against the same step taken on
             'hyper_params', HYPER_JOBS, HYPER_METRICS, 3)
         self._queue_feasibility(run)
         self.timings['catalog_queue']['mixed'] = self._queue_mixed(run)
+        self.timings['catalog_queue']['uncapped'] = self._queue_uncapped(tq)
 
-    def _queue_run(self, tq) -> dict:
-        """QUEUE_STAGE through the loop, the cut worker its runner: the
-        loop's exit code, its stage result, the wall time and each job's
-        record in ``queue.jsonl``."""
+    def _queue_run(self, tq, stage=QUEUE_STAGE, root=QUEUE_RESULTS,
+                   aggr=QUEUE_AGGR, tpu_arithmetic: bool = False) -> dict:
+        """``stage`` through the loop over ``root``, the cut worker its
+        runner: the loop's exit code, its stage result, the wall time and
+        each job's record in ``queue.jsonl``."""
         import shutil
 
-        shutil.rmtree(QUEUE_RESULTS, ignore_errors=True)
-        shutil.rmtree(QUEUE_AGGR, ignore_errors=True)
-        queue = tq.Queue(QUEUE_RESULTS, aggr_dir=QUEUE_AGGR,
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(aggr, ignore_errors=True)
+        queue = tq.Queue(root, aggr_dir=aggr,
                          device=self.dev.type, cooloff_s=QUEUE_COOLOFF_S,
                          runner=[sys.executable,
                                  str(Path(__file__).resolve()),
-                                 '--catalog-cut-worker'])
+                                 '--catalog-cut-worker'],
+                         tpu_arithmetic=tpu_arithmetic)
         t0 = time.perf_counter()
-        rc = queue.run([tq.Stage(*QUEUE_STAGE)])
+        rc = queue.run([tq.Stage(*stage)])
         wall = time.perf_counter() - t0
         (result,) = queue.results
         records = {r['job']: r for r in map(json.loads, (
-            QUEUE_RESULTS / 'queue.jsonl').read_text().splitlines())} \
-            if (QUEUE_RESULTS / 'queue.jsonl').exists() else {}
+            root / 'queue.jsonl').read_text().splitlines())} \
+            if (root / 'queue.jsonl').exists() else {}
         if result.exit_codes != [0]:
             print(textwrap.indent(queue.log_path.read_text()[-3000:], '    '))
         return {'rc': rc, 'result': result, 'wall_s': wall,
                 'records': records,
-                'job_timeout_s': tq.JOB_TIMEOUT_S['dataset']}
+                'job_timeout_s': max(tq.JOB_TIMEOUT_S[s]
+                                     for s in stage[0].split(','))}
 
     def _queue_through(self, run: dict, what: str, names) -> dict:
         """Checks that ``names`` ran in ``run``'s one stage, each ok: their
@@ -3362,10 +3389,11 @@ Step by step: each card step is held against the same step taken on
                    f'{run["job_timeout_s"]:g} s a job)')
         return records
 
-    def _queue_job_shape(self, name: str, records: dict, shape) -> dict:
-        """One cut job of ``QUEUE_STAGE``: its (chains, dim) against
-        ``shape`` and its K1/K3 launches against 3 and 1 a step; its
-        entry of the phase's timings."""
+    def _queue_job_shape(self, name: str, records: dict, shape,
+                         root: Path = QUEUE_RESULTS) -> dict:
+        """One cut job of ``QUEUE_STAGE`` (or of a loop over ``root``):
+        its (chains, dim) against ``shape`` and its K1/K3 launches against
+        3 and 1 a step; its entry of the phase's timings."""
         import dataclasses
 
         import numpy as np
@@ -3374,10 +3402,9 @@ Step by step: each card step is held against the same step taken on
         job = {j.name: j for j in cat.build_jobs()}[name]
         job = dataclasses.replace(job, overrides={**job.overrides,
                                                   **CATALOG_CUT})
-        scfg = job.config(QUEUE_RESULTS).training.sampler
+        scfg = job.config(root).training.sampler
         dim = sum(a.size for a in np.load(
-            job.exp_dir(QUEUE_RESULTS) / 'warmstart' /
-            'params_0.npz').values())
+            job.exp_dir(root) / 'warmstart' / 'params_0.npz').values())
         steps = mclmc_steps(scfg)
         launches = records[name]['launches']
         self.check(launches == {'isokinetic_momentum': 3 * steps,
@@ -3583,7 +3610,8 @@ Step by step: each card step is held against the same step taken on
                    if name in records}
         if QUEUE_NUTS_JOB in records:
             per_job[QUEUE_NUTS_JOB] = self._queue_nuts_job(
-                records[QUEUE_NUTS_JOB])
+                records[QUEUE_NUTS_JOB], 'datasize', QUEUE_NUTS_JOB,
+                QUEUE_NUTS_PROVIDER, QUEUE_RESULTS, 8)
         by_key = {j.name: j for j in cat.build_jobs()}
         for study in MIXED_STUDIES:
             proc, table, last = self._compare(
@@ -3598,22 +3626,23 @@ Step by step: each card step is held against the same step taken on
                        f'{proc.returncode}): {jobs} against three JAX '
                        f'seeds on six metrics: {last!r}')
             if QUEUE_NUTS_JOB in jobs:
-                self._compare_nuts(study, proc)
+                self._compare_nuts(study, proc, QUEUE_NUTS_JOB)
         gen = self.torch.Generator().manual_seed(17)
         for shape in sorted(set(MIXED_SHAPES.values())):
             self._k1_check(*shape)
             self._k3_check(*shape, gen)
         return {'jobs': per_job}
 
-    def _queue_nuts_job(self, record: dict) -> dict:
-        """The cut NUTS job of ``QUEUE_STAGE``: no K1/K3 launch, and the
-        warm start of its provider in the same root reused (its
-        ``training.log`` says so, and its config names the provider);
-        its entry of the phase's timings."""
+    def _queue_nuts_job(self, record: dict, study: str, name: str,
+                        provider_name: str, root: Path, depth: int) -> dict:
+        """A cut NUTS job of a loop over ``root``: no K1/K3 launch, its
+        config at tree depth ``depth``, and the warm start of its provider
+        in the same root reused (its ``training.log`` says so, and its
+        config names the provider); its entry of the phase's timings."""
         import yaml
 
-        exp = QUEUE_RESULTS / 'datasize' / QUEUE_NUTS_JOB
-        provider = QUEUE_RESULTS / 'datasize' / QUEUE_NUTS_PROVIDER
+        exp = root / study / name
+        provider = root / study / provider_name
         config = yaml.safe_load((exp / 'config.yaml').read_text())
         log = (exp / 'training.log').read_text()
         reused = (config['training']['warmstart']['warmstart_exp_dir']
@@ -3624,20 +3653,83 @@ Step by step: each card step is held against the same step taken on
         self.check(record['launches'] == {'isokinetic_momentum': 0,
                                           'partial_refresh': 0}
                    and reused and sampler['name'] == 'nuts'
-                   and sampler['max_num_doublings'] == 8,
-                   f'{QUEUE_NUTS_JOB} (NUTS, depth '
+                   and sampler['max_num_doublings'] == depth,
+                   f'{name} (NUTS, depth '
                    f'{sampler["max_num_doublings"]}, '
                    f'{sampler["warmup_steps"]} + {sampler["n_samples"]} '
                    f'steps): K1/K3 {record["launches"]} (none on NUTS), the '
-                   f'warm start of {QUEUE_NUTS_PROVIDER} reused: {reused}, '
+                   f'warm start of {provider_name} reused: {reused}, '
                    f'{record["wall_s"]} s')
         return {'wall_s': record['wall_s'], 'reused_warmstart': reused,
                 'launches': record['launches']}
 
-    def _compare_nuts(self, study: str, proc):
+    def _queue_uncapped(self, tq) -> dict:
+        """The uncapped NUTS job (UNCAPPED_NUTS_JOB) after its provider
+        through a loop of its own under ``--tpu-arithmetic``: both ok, the
+        provider's K1/K3 3 and 1 a step and none on NUTS, the provider's
+        warm start reused; tree depth 10 and target acceptance 0.8 in the
+        job's config (with the one bfloat16 pass), in its pooled row, in
+        the settings the runtime received and in the adaptation's log line;
+        the study compared on all three tables."""
+        import pandas as pd
+        import yaml
+
+        run = self._queue_run(tq, UNCAPPED_STAGE, UNCAPPED_RESULTS,
+                              UNCAPPED_AGGR, tpu_arithmetic=True)
+        names = [UNCAPPED_NUTS_PROVIDER, UNCAPPED_NUTS_JOB]
+        records = self._queue_through(
+            run, 'the uncapped NUTS job after its provider', names)
+        out = {'wall_s': run['wall_s']}
+        if sorted(records) != sorted(names):
+            return out
+        out['jobs'] = {
+            UNCAPPED_NUTS_PROVIDER: self._queue_job_shape(
+                UNCAPPED_NUTS_PROVIDER, records,
+                MIXED_SHAPES[UNCAPPED_NUTS_PROVIDER], UNCAPPED_RESULTS),
+            UNCAPPED_NUTS_JOB: self._queue_nuts_job(
+                records[UNCAPPED_NUTS_JOB], 'diagnostics', UNCAPPED_NUTS_JOB,
+                UNCAPPED_NUTS_PROVIDER, UNCAPPED_RESULTS,
+                UNCAPPED_SETTINGS['max_num_doublings'])}
+        exp = UNCAPPED_RESULTS / 'diagnostics' / UNCAPPED_NUTS_JOB
+        config = yaml.safe_load((exp / 'config.yaml').read_text())
+        sampler = config['training']['sampler']
+        runtime = [json.loads(line) for line in (
+            UNCAPPED_RESULTS / RUNTIME_SAMPLER).read_text().splitlines()] \
+            if (UNCAPPED_RESULTS / RUNTIME_SAMPLER).exists() else []
+        rows = pd.read_csv(UNCAPPED_AGGR / 'aggr_diagnostics.csv')
+        row = rows[rows['experiment_name'] == UNCAPPED_NUTS_JOB]
+        pooled = ({k: row[f'training.sampler.{k}'].item()
+                   for k in UNCAPPED_SETTINGS} if len(row) == 1 else None)
+        logged = ('(target %.2f)' % UNCAPPED_SETTINGS['target_acceptance']
+                  in (exp / 'training.log').read_text())
+        self.check(all(sampler[k] == v for k, v in UNCAPPED_SETTINGS.items())
+                   and config.get('none_precision') == 'bfloat16'
+                   and pooled == UNCAPPED_SETTINGS
+                   and [{k: r[k] for k in UNCAPPED_SETTINGS}
+                        for r in runtime] == [UNCAPPED_SETTINGS]
+                   and logged,
+                   f'{UNCAPPED_NUTS_JOB} under --tpu-arithmetic: config '
+                   f'{ {k: sampler[k] for k in UNCAPPED_SETTINGS} } '
+                   f'(none_precision {config.get("none_precision")}), pooled '
+                   f'row {pooled}, runtime received {runtime}, adaptation '
+                   f'log at the target: {logged} (want '
+                   f'{UNCAPPED_SETTINGS})')
+        proc, table, last = self._compare(
+            'diagnostics', UNCAPPED_AGGR / 'aggr_diagnostics.csv')
+        self.check(proc.returncode == 0 and table is not None
+                   and sorted(set(table['experiment_name'])) == sorted(names)
+                   and len(table) == 6 * len(names)
+                   and (table['jax_n'] == 3).all(),
+                   f'torch_compare_study.py diagnostics (exit '
+                   f'{proc.returncode}): {names} against three JAX seeds on '
+                   f'six metrics: {last!r}')
+        self._compare_nuts('diagnostics', proc, UNCAPPED_NUTS_JOB)
+        return out
+
+    def _compare_nuts(self, study: str, proc, name: str):
         """The NUTS table of ``_compare``'s run on ``study``: the NUTS job
-        alone, on NUTS_STATS, against three JAX seeds, every value finite,
-        and its count line."""
+        ``name`` alone, on NUTS_STATS, against three JAX seeds, every
+        value finite, and its count line."""
         import numpy as np
         import pandas as pd
 
@@ -3645,8 +3737,7 @@ Step by step: each card step is held against the same step taken on
         nuts = df[df['table'] == 'nuts']
         lines = proc.stdout.strip().splitlines()
         last = lines[-1] if 'NUTS' in lines else ''
-        self.check(nuts['experiment_name'].unique().tolist()
-                   == [QUEUE_NUTS_JOB]
+        self.check(nuts['experiment_name'].unique().tolist() == [name]
                    and nuts['metric'].tolist() == NUTS_STATS
                    and (nuts['jax_n'] == 3).all()
                    and bool(np.isfinite(nuts['port']).all())
@@ -4810,13 +4901,30 @@ def catalog_fault_worker(mode: str, root: str, extra=()) -> int:
 def catalog_cut_worker(argv: list) -> int:
     """The catalogue runner with ``argv``, every job's step counts cut to
     CATALOG_CUT, a NUTS job's to CATALOG_NUTS_CUT (the runner of the
-    catalog_queue phase's stage). Returns the runner's exit code."""
+    catalog_queue phase's stages); each ``run_hmc_family`` call appends the
+    sampler settings it received to RUNTIME_SAMPLER in the root. Returns
+    the runner's exit code."""
     import dataclasses
 
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / 'experiments'))
     import torch_run_catalog as cat
 
+    from mile_tpu_torch.train import sampling_hmc
+
+    root = Path(argv[argv.index('--root') + 1])
+    run_hmc_family = sampling_hmc.run_hmc_family
+
+    def recorded(logdensity_and_grad, cfg, *args, **kwargs):
+        with open(root / RUNTIME_SAMPLER, 'a') as f:
+            f.write(json.dumps({
+                'sampler': cfg.name.value,
+                'max_num_doublings': cfg.max_num_doublings,
+                'warmup_max_num_doublings': cfg.warmup_max_num_doublings,
+                'target_acceptance': cfg.target_acceptance}) + '\n')
+        return run_hmc_family(logdensity_and_grad, cfg, *args, **kwargs)
+
+    sampling_hmc.run_hmc_family = recorded
     every_job = cat.build_jobs
     cat.build_jobs = lambda: [
         dataclasses.replace(j, overrides={

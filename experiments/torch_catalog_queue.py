@@ -6,7 +6,7 @@
     python experiments/torch_catalog_queue.py --root results/torch_catalog
         --stage 'dataset:_r1$' [--stage STUDY[:REGEX] ...]
         [--aggr-dir aggr_results_torch] [--cooloff S] [--device cuda|cpu]
-        [--tpu-arithmetic] [--runner CMD]
+        [--tpu-arithmetic] [--no-split-k] [--runner CMD]
 
 Each stage is one study of the catalogue, or several joined by commas
 (``STUDY,STUDY:REGEX``: one runner process for jobs of several studies),
@@ -78,7 +78,8 @@ room for a host 1.5x slower 14,400 s.
 
 ``--tpu-arithmetic`` is passed on to every runner: its jobs run at the
 TPU's one bfloat16 pass wherever their precision is None (see the
-runner).
+runner). ``--no-split-k`` is passed on in the same way: the NUTS leaf's
+CUDA graph then takes the plain Dense product.
 
 The log (the runner's and the pooling's output, and the loop's own lines)
 is appended to ``ROOT/queue_driver.log``; the loop prints, per stage, the
@@ -153,7 +154,7 @@ class Queue:
     def __init__(self, root: Path, *, aggr_dir: Path = AGGR_DIR,
                  device: str = 'cuda', cooloff_s: float = COOLOFF_S,
                  runner: Sequence[str] = RUNNER,
-                 tpu_arithmetic: bool = False):
+                 tpu_arithmetic: bool = False, no_split_k: bool = False):
         self.root, self.aggr_dir = Path(root), Path(aggr_dir)
         if self.aggr_dir.resolve() == JAX_AGGR_DIR.resolve():
             raise ValueError(f'{self.aggr_dir} holds the JAX package\'s '
@@ -161,6 +162,7 @@ class Queue:
         self.device, self.cooloff_s = device, cooloff_s
         self.runner = list(runner)
         self.tpu_arithmetic = tpu_arithmetic
+        self.no_split_k = no_split_k
         self.log_path = self.root / 'queue_driver.log'
         self.results: list[StageResult] = []
 
@@ -185,7 +187,9 @@ class Queue:
         job_timeout = max(JOB_TIMEOUT_S.get(study, DEFAULT_JOB_TIMEOUT_S)
                           for study in stage.studies)
         cmd += ['--job-timeout', f'{job_timeout:g}', '--device', self.device]
-        return cmd + ['--tpu-arithmetic'] if self.tpu_arithmetic else cmd
+        if self.tpu_arithmetic:
+            cmd.append('--tpu-arithmetic')
+        return cmd + ['--no-split-k'] if self.no_split_k else cmd
 
     def run_stage(self, stage: Stage) -> StageResult:
         result = StageResult(stage, [])
@@ -266,15 +270,19 @@ def main(argv=None) -> int:
     p.add_argument('--tpu-arithmetic', action='store_true',
                    help="the runner's --tpu-arithmetic: a None matmul "
                         'precision is the TPU\'s one bfloat16 pass')
+    p.add_argument('--no-split-k', action='store_true',
+                   help="the runner's --no-split-k: the NUTS leaf's graph "
+                        'on the plain Dense product')
     p.add_argument('--runner', type=shlex.split, default=list(RUNNER),
                    help='the runner command, to which the loop appends '
                         '--root, --only, --name-filter, --job-timeout, '
-                        '--device and --tpu-arithmetic (default: '
-                        'torch_run_catalog.py)')
+                        '--device, --tpu-arithmetic and --no-split-k '
+                        '(default: torch_run_catalog.py)')
     args = p.parse_args(argv)
     queue = Queue(args.root, aggr_dir=args.aggr_dir, device=args.device,
                   cooloff_s=args.cooloff, runner=args.runner,
-                  tpu_arithmetic=args.tpu_arithmetic)
+                  tpu_arithmetic=args.tpu_arithmetic,
+                  no_split_k=args.no_split_k)
     return queue.run(args.stage)
 
 

@@ -4,6 +4,7 @@
     python experiments/torch_compare_study.py STUDY
         [--port aggr_results_torch/tpu_arithmetic/aggr_STUDY.csv]
         [--jax aggr_results/aggr_STUDY.csv] [--out FILE.csv] [--by-sweep]
+        [--by-target]
 
 Reads both pooled CSVs (``experiments/pool_results.py``'s rows), joined on
 ``experiment_name``. The metrics compared are those of ``METRICS``
@@ -71,8 +72,14 @@ have none (all MCLMC or DE) has no third table and needs none of its
 columns. NUTS rows stay in the first table for ``step_size_mean``; their
 ``L_mean`` is empty in both packages, which reads as no interval.
 
+With ``--by-target`` (the ``nuts_ta`` study's own finding: divergences
+fall as the target acceptance rises) a last table gives, for each target
+acceptance of the NUTS and HMC rows of either package, each package's
+runs and their mean ``n_divergent``, ``mean_acceptance_rate`` and
+``mean_num_integration_steps``.
+
 With ``--out`` the tables go to one CSV, told apart by its ``table``
-column (``predictive``, ``diagnostics`` or ``nuts``).
+column (``predictive``, ``diagnostics``, ``nuts`` or ``by_target``).
 
 The script reports and gates nothing: it exits 0 whatever the verdicts.
 It imports numpy and pandas only, so it runs anywhere.
@@ -96,6 +103,9 @@ DIAGNOSTICS = ('mean_ess', 'mean_split_rhat', 'mean_bcv', 'mean_wcv',
 NUTS_STATS = ('mean_acceptance_rate', 'mean_num_integration_steps',
               'n_divergent')
 TREE_SAMPLERS = ('nuts', 'hmc')
+TARGET = 'training.sampler.target_acceptance'
+BY_TARGET_STATS = ('n_divergent', 'mean_acceptance_rate',
+                   'mean_num_integration_steps')
 SEED = re.compile(r'_r\d+$')
 SWEEP = re.compile(r'\d[\d.x_]*$')
 # Student's t, 0.975 quantile, by degrees of freedom
@@ -326,6 +336,36 @@ def report(port: pd.DataFrame, jax: pd.DataFrame, by_sweep: bool = False
     return pd.concat(frames, ignore_index=True), lines
 
 
+def by_target(port: pd.DataFrame, jax: pd.DataFrame
+              ) -> tuple[pd.DataFrame, list[str]]:
+    """The NUTS and HMC rows of both packages by target acceptance: one
+    row per (package, target) with its runs and the mean of each of
+    ``BY_TARGET_STATS``; and the printed table, a target a line."""
+    rows = []
+    for package, df in (('port', tree_rows(port)), ('jax', tree_rows(jax))):
+        for target, runs in df.groupby(df[TARGET].astype(float), sort=True):
+            rows.append({'package': package, 'target_acceptance': target,
+                         'runs': len(runs),
+                         **{k: float(pd.to_numeric(runs[k]).mean())
+                            for k in BY_TARGET_STATS}})
+    df = pd.DataFrame(rows)
+    lines = ['| target | port runs | port divergent | port acceptance | '
+             'port steps | JAX runs | JAX divergent | JAX acceptance | '
+             'JAX steps |', '|---|---|---|---|---|---|---|---|---|']
+    for target in sorted(df['target_acceptance'].unique()):
+        cells = []
+        for package in ('port', 'jax'):
+            got = df[(df['package'] == package)
+                     & (df['target_acceptance'] == target)]
+            cells += (['0', '–', '–', '–'] if got.empty else [
+                f'{got["runs"].item()}',
+                f'{got["n_divergent"].item():.6g}',
+                f'{got["mean_acceptance_rate"].item():.4f}',
+                f'{got["mean_num_integration_steps"].item():.6g}'])
+        lines.append(f'| {target:g} | ' + ' | '.join(cells) + ' |')
+    return df, lines
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('study', help='the study, e.g. dataset')
@@ -339,6 +379,9 @@ def main(argv=None) -> int:
                    help='also write the comparison as a CSV')
     p.add_argument('--by-sweep', action='store_true',
                    help='after each count line, the count by sweep')
+    p.add_argument('--by-target', action='store_true',
+                   help="then both packages' NUTS rows by target "
+                        'acceptance')
     args = p.parse_args(argv)
     port = pd.read_csv(args.port or
                        ROOT / 'aggr_results_torch' / 'tpu_arithmetic' /
@@ -346,6 +389,11 @@ def main(argv=None) -> int:
     jax = pd.read_csv(args.jax or
                       ROOT / 'aggr_results' / f'aggr_{args.study}.csv')
     df, lines = report(port, jax, by_sweep=args.by_sweep)
+    if args.by_target:
+        targets, target_lines = by_target(port, jax)
+        lines += ['', 'By target acceptance', '', *target_lines]
+        df = pd.concat([df, targets.assign(table='by_target')],
+                       ignore_index=True)
     print('\n'.join(lines))
     if args.out is not None:
         df.to_csv(args.out, index=False)

@@ -5,6 +5,7 @@ same leaf run eagerly, in the PyTorch port.
     python experiments/torch_nuts_leaf_rate.py
         [--jobs protein_nuts_n40000_r1,bike_nuts_48x48x48_r1] [--steps 3]
         [--chains N] [--depth D] [--device cuda|cpu]
+        [--graph-only | --warmstart-epochs N]
 
 For each job of ``experiments/torch_run_catalog.py``: its training data
 and network (the job's own config: rows, widths, split, prior), 12 chains
@@ -29,7 +30,11 @@ rate over the plain one's in the graph, and the card's name and power
 limit. On the CPU no leaf is graphed: the first three runs are the same
 eager leaf, and the fourth is left out. ``--profile``: then one eager
 NUTS step under ``torch.profiler``, its device time by kernel (the top
-``PROFILE_TOP``) in a second JSON line.
+``PROFILE_TOP``) in a second JSON line. ``--graph-only``: only the
+graphed leaf, timed (two such processes side by side measure how loops
+share the card, ``experiments/torch_nuts_overlap.sh``).
+``--warmstart-epochs N``: instead of leaves, each job's warm start at the
+TPU's arithmetic cut to N epochs, timed.
 """
 from __future__ import annotations
 
@@ -48,8 +53,15 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / 'experiments'))
 
 # the mean of the JAX rows' ``step_size_mean`` over each grid point's
-# seeds (``aggr_results/aggr_datasize.csv``, ``aggr_complexity.csv``)
-ROWS_STEP_SIZE = {'protein_nuts_n': 1.4e-3, 'bike_nuts_48x48x48': 2.4e-3}
+# seeds (``aggr_results/aggr_datasize.csv``, ``aggr_complexity.csv``,
+# ``aggr_nuts_ta.csv``, ``aggr_diagnostics.csv``)
+ROWS_STEP_SIZE = {'protein_nuts_n': 1.4e-3, 'bike_nuts_48x48x48': 2.4e-3,
+                  'bike_nuts_32x32x32': 1.26e-3, 'bike_nuts_16x16x16': 9.4e-4,
+                  'bike_nuts_8x8x8': 7.1e-4, 'bike_nuts_ta80': 8.9e-4,
+                  'bike_nuts_ta90': 5.4e-4, 'bike_nuts_ta95': 3.6e-4,
+                  'diag_nuts_airfoil': 9.6e-4,
+                  'diag_nuts_bikesharing': 7.7e-4,
+                  'diag_nuts_energy': 6.1e-4}
 DEFAULT_STEP_SIZE = 1e-3
 PROFILE_TOP = 12
 FIELDS = ('num_trajectory_expansions', 'num_integration_steps',
@@ -104,7 +116,7 @@ def profile_step(kernel, state, eps, imm) -> dict:
 
 
 def measure(name: str, steps: int, n_chains: int, depth, device: str,
-            profiled: bool = False) -> dict:
+            profiled: bool = False, graph_only: bool = False) -> dict:
     import torch
 
     import torch_run_catalog as cat
@@ -166,6 +178,16 @@ def measure(name: str, steps: int, n_chains: int, depth, device: str,
 
     run('graph', True, contextlib.nullcontext())
     graphed = runs['graph']['graphed']
+    if graph_only:
+        graph = runs['graph']
+        return {'job': name, 'dim': trainer.bayes.dim,
+                'n_train': int(x.shape[0]), 'chains': n_chains,
+                'max_depth': depth, 'steps': steps,
+                'step_size': step_size_of(name), 'device': str(dev),
+                **{f'graph_{k}': v for k, v in graph.items()
+                   if k not in ('state', 'infos')},
+                'ended_at': time.time(),
+                'card': card() if dev.type == 'cuda' else None}
     run('eager_route', False, blocks.split_k_rows() if graphed
         else contextlib.nullcontext())
     run('eager', False, contextlib.nullcontext())
@@ -209,6 +231,39 @@ def measure(name: str, steps: int, n_chains: int, depth, device: str,
         'card': card() if dev.type == 'cuda' else None}
 
 
+def time_warmstart(name: str, epochs: int, device: str) -> dict:
+    """The job's warm start (its own config at the TPU's arithmetic, as
+    ``--tpu-arithmetic`` runs it) cut to ``epochs`` epochs, timed."""
+    import torch
+
+    import torch_run_catalog as cat
+    from mile_tpu_torch.train.trainer import BDETrainer
+    from mile_tpu_torch.utils import precision
+
+    (job,) = [j for j in cat.build_jobs() if j.name == name]
+    before = precision.none_precision()
+    precision.set_none_precision('bfloat16')
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            config = job.config(Path(root), tpu_arithmetic=True).replace(
+                **{'training.warmstart.max_epochs': epochs,
+                   'training.warmstart.warmstart_exp_dir': None})
+            trainer = BDETrainer(config, device=device)
+            t0 = time.perf_counter()
+            members = trainer.train_warmstart()
+            if trainer.device.type == 'cuda':
+                torch.cuda.synchronize(trainer.device)
+            seconds = time.perf_counter() - t0
+    finally:
+        precision.set_none_precision(before)
+    return {'job': name, 'warmstart_epochs': epochs,
+            'members': int(members.shape[0]), 'dim': int(members.shape[1]),
+            'warmstart_s': seconds, 's_per_epoch': seconds / epochs,
+            'ended_at': time.time(),
+            'device': str(trainer.device),
+            'card': card() if trainer.device.type == 'cuda' else None}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--jobs',
@@ -219,13 +274,22 @@ def main(argv=None) -> int:
                    help="tree depth (default: the job's max_num_doublings)")
     p.add_argument('--profile', action='store_true',
                    help='also profile one eager step on the card')
+    p.add_argument('--graph-only', action='store_true',
+                   help='time the graphed leaf alone (no eager runs)')
+    p.add_argument('--warmstart-epochs', type=int, default=None,
+                   help="time each job's warm start cut to this many "
+                        'epochs instead of its leaves')
     p.add_argument('--device', default='cuda',
                    help="torch device (default 'cuda'; 'cpu' to run on "
                         'the CPU)')
     args = p.parse_args(argv)
     for name in args.jobs.split(','):
-        print(json.dumps(measure(name, args.steps, args.chains, args.depth,
-                                 args.device, args.profile)), flush=True)
+        if args.warmstart_epochs:
+            rec = time_warmstart(name, args.warmstart_epochs, args.device)
+        else:
+            rec = measure(name, args.steps, args.chains, args.depth,
+                          args.device, args.profile, args.graph_only)
+        print(json.dumps(rec), flush=True)
     return 0
 
 

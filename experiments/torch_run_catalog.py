@@ -5,7 +5,7 @@
     python experiments/torch_run_catalog.py [--root results/torch_catalog]
         [--only STUDY[,STUDY]] [--name-filter REGEX] [--limit N]
         [--mclmc-first] [--job-timeout S] [--device cuda|cpu]
-        [--tpu-arithmetic] [--dry-run]
+        [--tpu-arithmetic] [--no-split-k] [--dry-run]
 
 Runs the same 248 jobs (studies, names, base configs, overrides with the
 depth-8 NUTS caps, warm-start providers), serially in one process,
@@ -57,6 +57,11 @@ at the chip's default. Each such job's ``config.yaml`` records the
 setting (``none_precision: bfloat16``), and so does its pooled row. The
 uncapped NUTS jobs also get the target acceptance of 0.8 that their rows
 record (``TPU_ROWS_NUTS``), where the default has been 0.9 since 06d12c2.
+
+``--no-split-k`` keeps the NUTS leaf's CUDA graph on the plain Dense
+product, where it would take the kernel's gradient in blocks of rows
+(``mile_tpu_torch.models.blocks.split_k_rows``): the same job on the
+other route, to set the two side by side.
 
 Runs on the GPU unless ``--device cpu`` is given; without a CUDA device it
 raises rather than run on the CPU unasked. There is no compilation cache
@@ -546,6 +551,10 @@ def main(argv=None) -> int:
     p.add_argument('--tpu-arithmetic', action='store_true',
                    help='a None matmul precision is one bfloat16 pass, as '
                         "the JAX rows' on the TPU (see the docstring)")
+    p.add_argument('--no-split-k', action='store_true',
+                   help="the NUTS leaf's CUDA graph takes the plain Dense "
+                        'product instead of the split-row kernel gradient '
+                        '(mile_tpu_torch.models.blocks.split_k_rows)')
     args = p.parse_args(argv)
 
     jobs = select_jobs(build_jobs(), args.only, args.name_filter,
@@ -557,6 +566,11 @@ def main(argv=None) -> int:
         return 0
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s %(message)s')
+    if args.no_split_k:
+        from mile_tpu_torch.models import blocks
+
+        blocks.SPLIT_K_MIN_ROWS = sys.maxsize
+        logger.info('the split-row kernel gradient is off')
     return run_queue(jobs, Path(args.root), job_timeout=args.job_timeout,
                      device=args.device, tpu_arithmetic=args.tpu_arithmetic)
 

@@ -6,9 +6,10 @@
 # package's pooled study by torch_compare_study.py.
 #
 #   experiments/torch_study_side_by_side.sh OUT LIMIT_S SPEC [SPEC ...]
-#     SPEC = ROOT:STUDY:REGEX[:STUDY:REGEX ...][:tpu]
+#     SPEC = ROOT:STUDY:REGEX[:STUDY:REGEX ...][:nosplit][:tpu]
 #       (each STUDY:REGEX one --stage of the loop, run in turn; tpu: the
-#       loop's --tpu-arithmetic; a REGEX holds no colon)
+#       loop's --tpu-arithmetic; nosplit: its --no-split-k, the NUTS
+#       leaf's graph on the plain Dense product; a REGEX holds no colon)
 #
 # Each loop runs under `timeout LIMIT_S`. OUT receives the card's name
 # and power limit (card.txt), nvidia-smi samples every 30 s (smi.csv),
@@ -29,19 +30,30 @@ nvidia-smi --query-gpu=timestamp,utilization.gpu,power.draw,clocks.sm,memory.use
 SMI=$!
 T0=$(date +%s)
 pids=()
-# SPEC -> "ROOT STUDY REGEX STUDY REGEX ... [tpu]", one word a field
-fields() { IFS=: read -r -a f <<< "$1"; echo "${f[@]}"; }
+# SPEC -> "ROOT STUDY REGEX STUDY REGEX ...", one word a field, with
+# the loop's options of its trailing flags in `flags`
+fields() {
+  IFS=: read -r -a f <<< "$1"
+  flags=()
+  while [ "${#f[@]}" -gt 3 ]; do
+    case ${f[-1]} in
+      tpu) flags+=(--tpu-arithmetic) ;;
+      nosplit) flags+=(--no-split-k) ;;
+      *) break ;;
+    esac
+    unset 'f[-1]'
+  done
+}
 for spec in "$@"; do
-  read -r -a f <<< "$(fields "$spec")"
-  root=${f[0]}; flag=""
-  if [ "${f[-1]}" = tpu ]; then flag="--tpu-arithmetic"; unset 'f[-1]'; fi
+  fields "$spec"
+  root=${f[0]}
   stages=()
   for ((i = 1; i + 1 < ${#f[@]}; i += 2)); do
     stages+=(--stage "${f[i]}:${f[i+1]}")
   done
   timeout -k 20 "$LIMIT" python3 experiments/torch_catalog_queue.py \
     --root "$root" "${stages[@]}" --aggr-dir "$root/aggr" \
-    --cooloff 60 $flag ${DEVICE:+--device $DEVICE} \
+    --cooloff 60 ${flags[@]+"${flags[@]}"} ${DEVICE:+--device $DEVICE} \
     ${RUNNER:+--runner "$RUNNER"} > /dev/null 2>&1 &
   pids+=($!)
 done
@@ -49,7 +61,7 @@ for p in "${pids[@]}"; do wait "$p"; echo "loop $p exit $?" >> "$OUT/loops.txt";
 echo "wall_s $(( $(date +%s) - T0 ))" >> "$OUT/loops.txt"
 kill $SMI 2>/dev/null
 for spec in "$@"; do
-  read -r -a f <<< "$(fields "$spec")"
+  fields "$spec"
   for ((i = 1; i + 1 < ${#f[@]}; i += 2)); do echo "${f[0]}:${f[i]}"; done
 done | sort -u | while IFS=: read -r root study; do
   tag=$(basename "$root")

@@ -41,6 +41,7 @@ STUB = textwrap.dedent('''
                  '--device'):
         p.add_argument(flag)
     p.add_argument('--tpu-arithmetic', action='store_true')
+    p.add_argument('--no-split-k', action='store_true')
     args = p.parse_args()
     with open(state / 'calls.jsonl', 'a') as f:
         f.write(json.dumps({{'argv': sys.argv[1:], **vars(args)}}) + '\\n')
@@ -552,6 +553,77 @@ def test_a_study_without_port_nuts_rows_compares_as_before(study):
         assert df['verdict'].tolist() == committed['verdict'].tolist()
 
 
+def test_no_split_k_reaches_the_runner(tmp_path, stub):
+    """``--no-split-k`` goes to every launch of the runner after
+    ``--tpu-arithmetic``; without it the runner gets none."""
+    runner, script, launches = stub
+    script(complexity=[70, 0], datasize=[0])
+    rc = tq.main(['--root', str(tmp_path / 'root'), '--stage', 'complexity',
+                  '--aggr-dir', str(tmp_path / 'aggr'), '--cooloff', '0',
+                  '--device', 'cpu', '--tpu-arithmetic', '--no-split-k',
+                  '--runner', shlex.join(runner)])
+    assert rc == 0
+    calls = launches()
+    assert [c['argv'][-2:] for c in calls] == [['--tpu-arithmetic',
+                                                '--no-split-k']] * 2
+    assert all(c['no_split_k'] for c in calls)
+    queue = _queue(tmp_path / 'plain', runner)
+    assert queue.run([tq.Stage('datasize')]) == 0
+    assert launches()[-1]['no_split_k'] is False
+
+
+def test_the_runners_no_split_k_keeps_the_leaf_on_the_plain_product(
+        monkeypatch, tmp_path):
+    """``torch_run_catalog.py --no-split-k`` moves the split-row
+    threshold out of reach for the process, so that the NUTS leaf's graph
+    takes the plain Dense product; without it the threshold stays."""
+    import torch_run_catalog as cat
+
+    from mile_tpu_torch.models import blocks
+
+    monkeypatch.setattr(blocks, 'SPLIT_K_MIN_ROWS', blocks.SPLIT_K_MIN_ROWS)
+    before = blocks.SPLIT_K_MIN_ROWS
+    args = ['--root', str(tmp_path), '--name-filter', '^no_such_job$',
+            '--device', 'cpu']
+    assert cat.main(args) == 0
+    assert blocks.SPLIT_K_MIN_ROWS == before == 4096
+    assert cat.main([*args, '--no-split-k']) == 0
+    assert blocks.SPLIT_K_MIN_ROWS == sys.maxsize
+
+
+def test_the_nuts_rows_by_target_acceptance(tmp_path, capsys):
+    """``--by-target``: the NUTS rows of both packages by target
+    acceptance (``nuts_ta``'s finding), a package's runs and their mean
+    divergences, acceptance and leapfrog steps, a target it did not run
+    shown empty; the table also in ``--out`` as ``by_target``."""
+    jax = pd.read_csv(ROOT / 'aggr_results' / 'aggr_nuts_ta.csv')
+    port = jax[jax['experiment_name'].isin(
+        ['bike_nuts_ta80_r3', 'bike_nuts_ta90_r3'])].copy()
+    port['n_divergent'] = [900.0, 20.0]
+    port_csv = tmp_path / 'aggr_nuts_ta.csv'
+    port.to_csv(port_csv, index=False)
+    out = tmp_path / 'compare.csv'
+    assert tc.main(['nuts_ta', '--port', str(port_csv), '--out', str(out),
+                    '--by-target']) == 0
+    lines = capsys.readouterr().out.splitlines()
+    at = lines.index('By target acceptance')
+    assert lines[at + 2].startswith('| target | port runs |')
+    rows = {line.split(' | ')[0]: line.split(' | ')[1:]
+            for line in lines[at + 4:]}
+    assert sorted(rows) == ['| 0.8', '| 0.9', '| 0.95']
+    assert rows['| 0.8'][:2] == ['1', '900']
+    assert rows['| 0.95'][:4] == ['0', '–', '–', '–']
+    assert rows['| 0.95'][4] == '3'
+    df = pd.read_csv(out)
+    targets = df[df['table'] == 'by_target']
+    jax80 = targets[(targets['package'] == 'jax')
+                    & (targets['target_acceptance'] == 0.8)].iloc[0]
+    assert jax80['runs'] == 3
+    assert jax80['n_divergent'] == pytest.approx((1572 + 1224 + 905) / 3)
+    assert set(df['table']) == {'predictive', 'diagnostics', 'nuts',
+                                'by_target'}
+
+
 def _write(tmp_path, df) -> Path:
     path = tmp_path / 'aggr_hyper_params.csv'
     df.to_csv(path, index=False)
@@ -628,6 +700,37 @@ def test_a_loop_of_several_stages_side_by_side(tmp_path, stub):
     for study in calls:
         pooled = pd.read_csv(out / 'root' / f'aggr_{study}.csv')
         assert pooled['experiment_name'].tolist() == [f'{study}_job_r1']
+
+
+def test_a_nosplit_loop_side_by_side(tmp_path, stub):
+    """A spec's trailing ``:nosplit`` gives its loop ``--no-split-k``,
+    with ``:tpu`` in either order, beside a loop without them; the
+    flags are not taken for a stage when the spec is pooled."""
+    import os
+
+    runner, script, launches = stub
+    script(complexity=[0], datasize=[0])
+    root = tmp_path / 'root'
+    out = tmp_path / 'out'
+    env = dict(os.environ, DEVICE='cpu', RUNNER=shlex.join(runner))
+    proc = subprocess.run(
+        ['bash', str(ROOT / 'experiments' / 'torch_study_side_by_side.sh'),
+         str(out), '60', f'{root}:complexity:^bike_nuts_48x48x48_r1$:'
+         f'nosplit:tpu', f'{tmp_path / "other"}:datasize:_r1$:tpu:nosplit',
+         f'{tmp_path / "plain"}:complexity:_r2$'],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    calls = {Path(c['root']).name: c for c in launches()}
+    assert calls['root']['name_filter'] == '^bike_nuts_48x48x48_r1$'
+    assert calls['root']['no_split_k'] and calls['root']['tpu_arithmetic']
+    assert calls['other']['no_split_k'] and calls['other']['tpu_arithmetic']
+    assert not (calls['plain']['no_split_k']
+                or calls['plain']['tpu_arithmetic'])
+    assert sorted(p.name for p in out.iterdir() if p.is_dir()) == [
+        'other', 'plain', 'root']
+    assert not (out / 'root' / 'aggr_nosplit.csv').exists()
+    pooled = pd.read_csv(out / 'root' / 'aggr_complexity.csv')
+    assert pooled['experiment_name'].tolist() == ['complexity_job_r1']
 
 
 def test_the_mixed_studies_timeouts_fit_protein_at_40000_rows():

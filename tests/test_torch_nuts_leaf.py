@@ -200,3 +200,27 @@ def test_the_leaf_rate_script_on_the_cpu():
     assert not out['graph_graphed'] and out['card'] is None
     assert not out['graph_splits'] and out['split_over_plain_graphed'] \
         is None and 'graph_other_leaves' not in out
+
+
+def test_the_leaf_rate_scripts_graph_only_and_warm_start_modes(capsys):
+    """``--graph-only`` times the leaf of the runtime's route alone (the
+    side-by-side loops of ``torch_nuts_overlap.sh``); ``--warmstart-epochs``
+    times the job's warm start cut to that many epochs instead; the
+    depth-10 jobs' step sizes are their rows'."""
+    import json
+
+    import torch_nuts_leaf_rate as rate
+
+    out = rate.measure('diag_nuts_energy_r1', steps=1, n_chains=2, depth=2,
+                       device='cpu', graph_only=True)
+    assert (out['dim'], out['n_train'], out['max_depth']) == (450, 537, 2)
+    assert out['graph_leaves'] > 0 and out['graph_leaves_per_s'] > 0
+    assert not any(k.startswith(('eager', 'graph_other')) for k in out)
+    assert out['step_size'] == rate.ROWS_STEP_SIZE['diag_nuts_energy']
+    assert rate.step_size_of('bike_nuts_ta95_r2') == 3.6e-4
+    assert rate.main(['--jobs', 'diag_mclmc_energy_r1', '--warmstart-epochs',
+                      '1', '--device', 'cpu']) == 0
+    ws = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (ws['job'], ws['warmstart_epochs'], ws['members'], ws['dim']) \
+        == ('diag_mclmc_energy_r1', 1, 12, 450)
+    assert ws['warmstart_s'] > 0 and ws['card'] is None

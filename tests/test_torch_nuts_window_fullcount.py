@@ -1,24 +1,43 @@
-"""The NUTS window adaptation of both packages from the same members, on
-the CPU, at the ``datasize`` study's protein n10000 cell (marked
-``slow``: about a quarter of an hour on the CPU; outside tier-1).
+"""The NUTS window adaptation and draws of both packages from the same
+members, on the CPU, at two study cells (marked ``slow``: about a quarter
+of an hour a case at protein n10000, over an hour at width 48; outside
+tier-1).
 
-Members: the port's warm start of ``protein_nuts_n10000_r2``'s config on
-the CPU at the TPU's one bfloat16 pass (the study's arithmetic), seed 2.
-From them each package runs its HMC-family runtime as the study job does:
-NUTS at depth 8 in both phases, target acceptance 0.9, the rows' 100
-window-adaptation steps, then ``DRAWS`` draws, in exact float32. The two
-draw from different generators, so the comparison is statistical over
-the 12 chains: the adapted ε paired by chain (the log ratio's mean against
-three of its standard errors), and the draws' mean acceptance and leapfrog
-steps a draw against three standard errors of their difference. The test
-prints every number (``-s``).
+``test_nuts_window_adaptation_from_the_same_members``: the ``datasize``
+study's protein n10000 cell, from three sources of members: the port's
+warm start of ``protein_nuts_n10000_r2``'s config on the CPU at the TPU's
+one bfloat16 pass (the study's arithmetic), seed 2; and the members that
+the port's ``protein_nuts_n10000_r2`` and ``_r3`` runs warm-started on the
+card and sampled from (``tests/fixtures/card_members/``), each with its
+own job's config and seed; and, the same way, the n40000 cell from the
+card's ``protein_nuts_n40000_r1`` members.
+
+``test_width_48_mean_ess_from_the_cards_members``: the ``complexity``
+study's width-48 cell, from the members of the port's
+``bike_nuts_48x48x48_r1`` run on the card; besides the NUTS table it
+compares the draws' ``mean_ess`` (the study's: each layer's pooled ESS,
+averaged over the layers) at the same draw count in both packages.
+
+From the members each package runs its HMC-family runtime as the study
+job does: NUTS at depth 8 in both phases, target acceptance 0.9, the
+rows' 100 window-adaptation steps, then the test's draws, in exact
+float32. The two draw from different generators, so the comparison is
+statistical over the 12 chains: the adapted ε paired by chain (the log
+ratio's mean against three of its standard errors), the draws' mean
+acceptance and leapfrog steps a draw against three standard errors of
+their difference, and ``mean_ess`` against three of its jackknife
+standard errors over chains. The port runs in a process of its own beside
+the JAX package. The test prints every number (``-s``).
 """
-import dataclasses
+import concurrent.futures
+import multiprocessing
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+
+import _torch_card_members as card
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / 'experiments'))
@@ -26,6 +45,11 @@ sys.path.insert(0, str(ROOT / 'experiments'))
 pytestmark = pytest.mark.slow
 
 JOB = 'protein_nuts_n10000_r2'
+# member source -> the job whose config and seed the members go with
+SOURCES = {'cpu_warm_start': JOB, 'card_r2': 'protein_nuts_n10000_r2',
+           'card_r3': 'protein_nuts_n10000_r3',
+           'card_n40000_r1': 'protein_nuts_n40000_r1'}
+WIDTH_JOB = 'bike_nuts_48x48x48_r1'
 DRAWS = 100
 THREADS = 4
 
@@ -35,64 +59,97 @@ def _se(v) -> float:
     return float(v.std(ddof=1) / np.sqrt(len(v)))
 
 
-def test_nuts_window_adaptation_from_the_same_members(tmp_path):
-    import jax
-    import jax.numpy as jnp
+def _updates(job, root: Path, draws: int) -> dict:
+    return {'saving_dir': str(root), 'experiment_name': job.name,
+            **job.overrides, 'training.sampler.n_samples': draws}
+
+
+def _port_config(job, root: Path, draws: int):
+    return job.config(root, tpu_arithmetic=True).replace(
+        **_updates(job, root, draws))
+
+
+def _warm_start(job, root: Path):
+    """The port's warm start of ``job`` on the CPU at the TPU's one pass."""
     import torch
 
-    import torch_run_catalog as cat
-    from mile_tpu.config import Config as JaxConfig
-    from mile_tpu.train.sampling_hmc import run_hmc_family as jax_run
-    from mile_tpu.train.trainer import BDETrainer as JaxTrainer
-    from mile_tpu_torch.train.sampling_hmc import run_hmc_family
     from mile_tpu_torch.train.trainer import BDETrainer
     from mile_tpu_torch.utils import precision
 
-    prev_threads = torch.get_num_threads()
+    prev = torch.get_num_threads()
     torch.set_num_threads(THREADS)
-    # the members are warm-started here: no provider
-    (job,) = [dataclasses.replace(j, warmstart_from=None)
-              for j in cat.build_jobs() if j.name == JOB]
-    overrides = {**job.overrides, 'training.sampler.n_samples': DRAWS}
-    updates = {'saving_dir': str(tmp_path), 'experiment_name': JOB,
-               **overrides}
     try:
         precision.set_none_precision('bfloat16')
-        config = job.config(tmp_path, tpu_arithmetic=True).replace(
-            **updates)
-        trainer = BDETrainer(config, device='cpu')
-        members = trainer.train_warmstart()
-        precision.set_none_precision('float32')
-        scfg = config.training.sampler
-        assert (scfg.max_num_doublings, scfg.warmup_max_num_doublings,
-                scfg.target_acceptance, scfg.warmup_steps) == (8, 8, 0.9,
-                                                                100)
-        x, y = trainer.loader.arrays('train')
-        ours = run_hmc_family(trainer.bayes.logdensity_and_grad_fn(x, y),
-                              scfg, torch.Generator().manual_seed(7),
-                              members)
+        trainer = BDETrainer(_port_config(job, root, DRAWS), device='cpu')
+        return trainer.train_warmstart().numpy()
     finally:
         precision.set_none_precision('float32')
-        torch.set_num_threads(prev_threads)
+        torch.set_num_threads(prev)
 
-    (jcfg,) = JaxConfig.from_file(ROOT / job.base)
-    jcfg = jcfg.replace(**{**updates, 'saving_dir': str(tmp_path / 'jax')})
-    jtrainer = JaxTrainer(jcfg)
-    jx, jy = jtrainer.loader.arrays('train')
-    assert jx.shape[0] == x.shape[0] == 9000
-    theirs = jax_run(jtrainer.bayes.logdensity_fn(jx, jy),
-                     jcfg.training.sampler, jax.random.PRNGKey(7),
-                     jnp.asarray(members.numpy()))
 
-    def stats(result):
-        info = result.info
-        return {'eps': np.asarray(result.tuned['step_size'], np.float64),
-                'accept': np.asarray(info['acceptance_rate']).mean(axis=1),
-                'steps': np.asarray(info['num_integration_steps'],
-                                    np.float64).mean(axis=1),
-                'divergent': int(np.sum(info['is_divergent']))}
+def _port_nuts(name: str, members: np.ndarray, draws: int, root: str):
+    """The port's runtime from ``members`` (in a process of its own)."""
+    import torch
 
-    a, b = stats(ours), stats(theirs)
+    from mile_tpu_torch.train.sampling_hmc import run_hmc_family
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    torch.set_num_threads(THREADS)
+    job = card.catalogue_job(name)
+    config = _port_config(job, Path(root), draws)
+    scfg = config.training.sampler
+    trainer = BDETrainer(config, device='cpu')
+    x, y = trainer.loader.arrays('train')
+    result = run_hmc_family(trainer.bayes.logdensity_and_grad_fn(x, y), scfg,
+                            torch.Generator().manual_seed(7),
+                            torch.from_numpy(members))
+    settings = (scfg.max_num_doublings, scfg.warmup_max_num_doublings,
+                scfg.target_acceptance, scfg.warmup_steps)
+    return (settings, int(x.shape[0]), _stats(result),
+            np.asarray(result.samples, np.float32))
+
+
+def _stats(result) -> dict:
+    info = result.info
+    return {'eps': np.asarray(result.tuned['step_size'], np.float64),
+            'accept': np.asarray(info['acceptance_rate']).mean(axis=1),
+            'steps': np.asarray(info['num_integration_steps'],
+                                np.float64).mean(axis=1),
+            'divergent': int(np.sum(info['is_divergent']))}
+
+
+def _both_packages(name: str, members: np.ndarray, draws: int, root: Path):
+    """(port, JAX): each package's statistics and draws from ``members``;
+    the port in a spawned process while the JAX package runs here."""
+    import jax
+    import jax.numpy as jnp
+
+    from mile_tpu.config import Config as JaxConfig
+    from mile_tpu.train.sampling_hmc import run_hmc_family as jax_run
+    from mile_tpu.train.trainer import BDETrainer as JaxTrainer
+
+    job = card.catalogue_job(name)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context('spawn')) as pool:
+        port = pool.submit(_port_nuts, name, members, draws,
+                           str(root / 'port'))
+        (jcfg,) = JaxConfig.from_file(ROOT / job.base)
+        jcfg = jcfg.replace(**_updates(job, root / 'jax', draws))
+        jtrainer = JaxTrainer(jcfg)
+        jx, jy = jtrainer.loader.arrays('train')
+        theirs = jax_run(jtrainer.bayes.logdensity_fn(jx, jy),
+                         jcfg.training.sampler, jax.random.PRNGKey(7),
+                         jnp.asarray(members))
+        settings, n_train, ours, samples = port.result()
+    assert settings == (8, 8, 0.9, 100)
+    assert jx.shape[0] == n_train == {JOB: 9000, WIDTH_JOB: 12165}.get(
+        name, n_train)
+    return ((ours, samples),
+            (_stats(theirs), np.asarray(theirs.samples, np.float32)))
+
+
+def _compare(a: dict, b: dict, draws: int) -> None:
+    """Print both packages' NUTS table and hold them to each other."""
     log_ratio = np.log(a['eps'] / b['eps'])
     print(f'\nport ε {a["eps"].mean():.6f} ± {_se(a["eps"]):.6f}, JAX '
           f'{b["eps"].mean():.6f} ± {_se(b["eps"]):.6f}; paired log ratio '
@@ -100,9 +157,56 @@ def test_nuts_window_adaptation_from_the_same_members(tmp_path):
     for k in ('accept', 'steps'):
         print(f'{k}: port {a[k].mean():.4f} ± {_se(a[k]):.4f}, JAX '
               f'{b[k].mean():.4f} ± {_se(b[k]):.4f}')
-    print(f'divergent over {DRAWS} draws x 12 chains: port '
+    print(f'divergent over {draws} draws x 12 chains: port '
           f'{a["divergent"]}, JAX {b["divergent"]}')
     assert abs(log_ratio.mean()) <= 3 * _se(log_ratio)
     for k in ('accept', 'steps'):
         assert abs(a[k].mean() - b[k].mean()) <= 3 * np.hypot(_se(a[k]),
                                                               _se(b[k]))
+
+
+@pytest.mark.parametrize('source', list(SOURCES))
+def test_nuts_window_adaptation_from_the_same_members(source, tmp_path):
+    name = SOURCES[source]
+    if source == 'cpu_warm_start':
+        # no provider: the members are warm-started here
+        members = _warm_start(card.catalogue_job(name), tmp_path / 'ws')
+    else:
+        members = card.members(name)
+    (ours, _), (theirs, _) = _both_packages(name, members, DRAWS, tmp_path)
+    print(f'\nmembers: {source} ({name})')
+    _compare(ours, theirs, DRAWS)
+
+
+def mean_ess(samples: np.ndarray, name: str) -> float:
+    """The study's ``mean_ess``: each layer's pooled ESS over the chains
+    (the port's estimator, which agrees with the JAX package's on the same
+    draws), averaged over the layers."""
+    from mile_tpu_torch.inference import reporting
+
+    rows = reporting.compute_diagnostics(samples, card.layout(name),
+                                         device='cpu')
+    return float(np.mean([row['ess'] for row in rows.values()]))
+
+
+def jackknife_se(samples: np.ndarray, name: str) -> float:
+    """The jackknife standard error of ``mean_ess`` over the chains."""
+    n = samples.shape[0]
+    loo = np.array([mean_ess(np.delete(samples, c, axis=0), name)
+                    for c in range(n)])
+    return float(np.sqrt((n - 1) / n * np.sum((loo - loo.mean()) ** 2)))
+
+
+def test_width_48_mean_ess_from_the_cards_members(tmp_path):
+    members = card.members(WIDTH_JOB)
+    (ours, port_draws), (theirs, jax_draws) = _both_packages(
+        WIDTH_JOB, members, DRAWS, tmp_path)
+    assert port_draws.shape == jax_draws.shape == (12, DRAWS, 5426)
+    print(f'\nmembers: the card\'s {WIDTH_JOB}')
+    ess = {k: (mean_ess(d, WIDTH_JOB), jackknife_se(d, WIDTH_JOB))
+           for k, d in (('port', port_draws), ('JAX', jax_draws))}
+    print('mean_ess over {} draws: port {:.3f} ± {:.3f}, JAX {:.3f} ± '
+          '{:.3f}'.format(DRAWS, *ess['port'], *ess['JAX']))
+    (a, sa), (b, sb) = ess['port'], ess['JAX']
+    assert abs(a - b) <= 3 * np.hypot(sa, sb)
+    _compare(ours, theirs, DRAWS)
