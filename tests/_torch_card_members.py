@@ -2,12 +2,15 @@
 
 ``tests/fixtures/card_members/<job>/`` holds the ``warmstart/`` directory
 (``layout.json`` and ``params_{0..11}.npz``, as the port writes them) of
-eight catalogue jobs that the port ran at full counts under
+ten catalogue jobs that the port ran at full counts under
 ``--tpu-arithmetic`` on an NVIDIA H100 80GB HBM3 (700 W): the ``datasize``
 study's ``protein_nuts_n10000_r{1,2,3}`` and ``protein_nuts_n40000_r{1,2}``
-and the ``complexity`` study's ``bike_nuts_48x48x48_r{1,2,3}``. Each of
-those NUTS runs warm-started its own 12 members and sampled from them, so
-these are the members behind the port's pooled rows of those jobs.
+and the ``complexity`` study's ``bike_nuts_48x48x48_r{1,2,3}``, each of
+which warm-started its own 12 members and sampled from them; and the
+``complexity`` study's ``bike_mclmc_16x16x16_r{1,2}``, the providers whose
+members the ``nuts_ta`` study's seeds 1 and 2 (and ``complexity``'s
+``bike_nuts_16x16x16_r{1,2}``) sample from. So these are the members
+behind the port's pooled rows of those jobs.
 
 :func:`members` gives them as the flat ``(12, dim)`` float32 array that
 both packages' runtimes take (``mile_tpu_torch.train.sampling_hmc.
@@ -35,6 +38,8 @@ JOBS = {
     'bike_nuts_48x48x48_r1': ('complexity', 5426),
     'bike_nuts_48x48x48_r2': ('complexity', 5426),
     'bike_nuts_48x48x48_r3': ('complexity', 5426),
+    'bike_mclmc_16x16x16_r1': ('complexity', 786),
+    'bike_mclmc_16x16x16_r2': ('complexity', 786),
 }
 
 
@@ -62,13 +67,22 @@ def members(job: str) -> np.ndarray:
     return flat.astype(np.float32)
 
 
+def _find(job: str):
+    sys.path.insert(0, str(ROOT / 'experiments'))
+    import torch_run_catalog as cat
+
+    (found,) = [j for j in cat.build_jobs() if j.name == job]
+    return found
+
+
 def catalogue_job(job: str):
     """The port's catalogue job of that name, without a warm-start
     provider (the members stand in for it)."""
     import dataclasses
 
-    sys.path.insert(0, str(ROOT / 'experiments'))
-    import torch_run_catalog as cat
+    return dataclasses.replace(_find(job), warmstart_from=None)
 
-    (found,) = [j for j in cat.build_jobs() if j.name == job]
-    return dataclasses.replace(found, warmstart_from=None)
+
+def provider(job: str) -> str:
+    """The name of the catalogue job whose warm start ``job`` reuses."""
+    return Path(_find(job).warmstart_from).name

@@ -1,8 +1,10 @@
 """The card's warm-start members kept as fixtures (``tests/fixtures/
 card_members/``, loaded by ``tests/_torch_card_members.py``), checked
 against each job's network in both packages: the flat dimension (738 for
-protein, 5,426 at width 48), the port's layout of the job's model, and
-the JAX model's ``ravel_pytree`` order, leaf by leaf."""
+protein, 786 at width 16, 5,426 at width 48), the port's layout of the
+job's model, and the JAX model's ``ravel_pytree`` order, leaf by leaf;
+and the providers' members against the network of each ``nuts_ta`` job
+that samples from them."""
 import jax
 import numpy as np
 import pytest
@@ -10,9 +12,26 @@ import pytest
 import _torch_card_members as card
 from _torch_parity import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.parametrize('job', sorted(card.JOBS))
+JOB = pytest.mark.parametrize('job', sorted(card.JOBS))
+# the nuts_ta jobs whose provider's members are fixtures
+CONSUMERS = [f'bike_nuts_ta{t}_r{r}' for r in (1, 2) for t in (80, 90, 95)]
 
 
+@pytest.mark.parametrize('consumer', CONSUMERS)
+def test_a_providers_members_fit_its_nuts_ta_consumer(consumer, tmp_path):
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    job = card.provider(consumer)
+    assert job in card.JOBS
+    spec = card.catalogue_job(consumer)
+    assert spec.study == 'nuts_ta'
+    trainer = BDETrainer(spec.config(tmp_path, tpu_arithmetic=True),
+                         device='cpu')
+    assert trainer.bayes.dim == card.JOBS[job][1] == 786
+    assert card.layout(job).to_json() == trainer.model.layout.to_json()
+
+
+@JOB
 def test_the_members_fit_the_ports_model(job, tmp_path):
     from mile_tpu_torch.train.trainer import BDETrainer
 
@@ -28,6 +47,7 @@ def test_the_members_fit_the_ports_model(job, tmp_path):
     assert card.layout(job).to_json() == trainer.model.layout.to_json()
 
 
+@JOB
 def test_the_members_unravel_in_the_jax_order(job, tmp_path):
     from mile_tpu.config import Config as JaxConfig
     from mile_tpu.train.trainer import BDETrainer as JaxTrainer

@@ -534,23 +534,31 @@ def test_the_nuts_table_holds_the_datasize_nuts_rows(tmp_path, capsys):
 def test_a_study_without_port_nuts_rows_compares_as_before(study):
     """A port study of MCLMC and DE rows alone, without the tree
     statistics' columns, where the JAX study has NUTS rows: no
-    ``KeyError``, no third table, and (``diagnostics``, ``hyper_params``)
-    the committed comparison unchanged line for line."""
+    ``KeyError``, no third table, and the committed comparison's rows of
+    those runs unchanged, line for line; where the committed study has no
+    port NUTS rows (``hyper_params``), the whole comparison."""
     here = ROOT / 'aggr_results_torch' / 'tpu_arithmetic'
     jax = pd.read_csv(ROOT / 'aggr_results' / f'aggr_{study}.csv')
     assert tc.metrics_of(jax, tc.NUTS_STATS)
-    port = pd.read_csv(here / f'aggr_{study}.csv')
-    port = port[~port['training.sampler.name'].isin(tc.TREE_SAMPLERS)]
+    pooled = pd.read_csv(here / f'aggr_{study}.csv')
+    port = pooled[~pooled['training.sampler.name'].isin(tc.TREE_SAMPLERS)]
     port = port.drop(columns=[c for c in tc.NUTS_STATS
                               if c in port.columns])
     assert not port.empty and tc.tree_rows(port).empty
     df, lines = tc.report(port, jax, by_sweep=study == 'hyper_params')
     assert 'nuts' not in set(df['table']) and 'NUTS' not in lines
-    if study != 'datasize':
-        md = (here / f'compare_{study}.md').read_text()
-        assert md == '\n'.join(lines) + '\n'
-        committed = pd.read_csv(here / f'compare_{study}.csv')
-        assert df['verdict'].tolist() == committed['verdict'].tolist()
+    committed = pd.read_csv(here / f'compare_{study}.csv')
+    kept = committed[committed['experiment_name'].isin(
+        port['experiment_name'])]
+    cols = ['experiment_name', 'metric', 'table', 'verdict']
+    assert df[cols].values.tolist() == kept[cols].values.tolist()
+    md, text = ((here / f'compare_{study}.md').read_text(),
+                '\n'.join(lines) + '\n')
+    runs = tuple(f'| {name} |' for name in port['experiment_name'])
+    assert ([line for line in md.splitlines() if line.startswith(runs)]
+            == [line for line in text.splitlines() if line.startswith(runs)])
+    if tc.tree_rows(pooled).empty:
+        assert md == text
 
 
 def test_no_split_k_reaches_the_runner(tmp_path, stub):

@@ -12,6 +12,24 @@ card and sampled from (``tests/fixtures/card_members/``), each with its
 own job's config and seed; and, the same way, the n40000 cell from the
 card's ``protein_nuts_n40000_r1`` members.
 
+``test_acceptance_over_a_jobs_draws_from_the_same_members``: from the
+card's ``protein_nuts_n10000_r2`` members, four at a time (``SUBSETS``,
+a case each, the same members in both packages), the job's whole run:
+100 adaptation steps and its 1,000 draws.
+Every port run of the study on the card lost acceptance over its draws
+(0.84-0.93 in the first 100, 0.60-0.80 in the last 100); this case holds
+the fall itself: each package's acceptance in windows of 100 draws, each
+window's mean against three standard errors of the difference over the
+chains, and each chain's drop from the first window to the last, paired
+by member, against three standard errors of the paired difference.
+
+``test_one_chain_of_a_target_acceptance_job``: one member of a
+``nuts_ta`` job alone in both packages, at the job's own settings as the
+runner loads them (depth 10, its target acceptance), 100 adaptation
+steps and ``CHAIN_DRAWS`` draws: a chain that sticks on the card (its
+acceptance far under the target, its divergences in the hundreds) either
+sticks in both packages or is the port's.
+
 ``test_width_48_mean_ess_from_the_cards_members``: the ``complexity``
 study's width-48 cell, from the members of the port's
 ``bike_nuts_48x48x48_r1`` run on the card; besides the NUTS table it
@@ -19,10 +37,11 @@ compares the draws' ``mean_ess`` (the study's: each layer's pooled ESS,
 averaged over the layers) at the same draw count in both packages.
 
 From the members each package runs its HMC-family runtime as the study
-job does: NUTS at depth 8 in both phases, target acceptance 0.9, the
-rows' 100 window-adaptation steps, then the test's draws, in exact
+job does: the job's settings as both packages load them (the protein and
+width-48 cells: NUTS at depth 8 in both phases, target acceptance 0.9),
+the rows' 100 window-adaptation steps, then the test's draws, in exact
 float32. The two draw from different generators, so the comparison is
-statistical over the 12 chains: the adapted ε paired by chain (the log
+statistical over the chains: the adapted ε paired by chain (the log
 ratio's mean against three of its standard errors), the draws' mean
 acceptance and leapfrog steps a draw against three standard errors of
 their difference, and ``mean_ess`` against three of its jackknife
@@ -52,6 +71,20 @@ SOURCES = {'cpu_warm_start': JOB, 'card_r2': 'protein_nuts_n10000_r2',
 WIDTH_JOB = 'bike_nuts_48x48x48_r1'
 DRAWS = 100
 THREADS = 4
+# the members that the long cases run, the same in both packages: a
+# job's 1,000 draws of all 12 chains would take both packages about six
+# hours on an 8-core box (100 + 100 steps of 12 chains took an hour at
+# n10000), so a case keeps a third of the chains (about 1.5 hours). The
+# n40000 leaf costs about four times n10000's, so its 100-draw case
+# keeps the first four too.
+SUBSETS = {'members_0-3': (0, 1, 2, 3), 'members_4-7': (4, 5, 6, 7)}
+SUBSET = SUBSETS['members_0-3']
+SUBSET_SOURCES = ('card_n40000_r1',)
+JOB_DRAWS = 1000
+WINDOW = 100
+# the protein cells' settings: (max_num_doublings,
+# warmup_max_num_doublings, target_acceptance, warmup_steps)
+DEPTH_8 = (8, 8, 0.9, 100)
 
 
 def _se(v) -> float:
@@ -111,16 +144,36 @@ def _port_nuts(name: str, members: np.ndarray, draws: int, root: str):
 
 def _stats(result) -> dict:
     info = result.info
+    accept = np.asarray(info['acceptance_rate'], np.float64)  # (chains, draws)
     return {'eps': np.asarray(result.tuned['step_size'], np.float64),
-            'accept': np.asarray(info['acceptance_rate']).mean(axis=1),
+            'accept': accept.mean(axis=1),
+            'accept_draws': accept,
             'steps': np.asarray(info['num_integration_steps'],
                                 np.float64).mean(axis=1),
-            'divergent': int(np.sum(info['is_divergent']))}
+            'divergent': int(np.sum(info['is_divergent'])),
+            'divergent_chains': np.asarray(info['is_divergent'],
+                                           np.int64).sum(axis=1)}
+
+
+def _windows(accept: np.ndarray, width: int = WINDOW) -> np.ndarray:
+    """Each chain's mean acceptance in consecutive windows of ``width``
+    draws: ``(chains, draws // width)``."""
+    chains, draws = accept.shape
+    n = draws // width
+    return accept[:, :n * width].reshape(chains, n, width).mean(axis=2)
+
+
+def _job_settings(cfg) -> tuple:
+    s = cfg.training.sampler
+    return (s.max_num_doublings, s.warmup_max_num_doublings,
+            s.target_acceptance, s.warmup_steps)
 
 
 def _both_packages(name: str, members: np.ndarray, draws: int, root: Path):
     """(port, JAX): each package's statistics and draws from ``members``;
-    the port in a spawned process while the JAX package runs here."""
+    the port in a spawned process while the JAX package runs here. Both
+    run the job's settings as each package loads them, and the port's
+    must be the JAX package's (returned as ``settings``)."""
     import jax
     import jax.numpy as jnp
 
@@ -141,11 +194,12 @@ def _both_packages(name: str, members: np.ndarray, draws: int, root: Path):
                          jcfg.training.sampler, jax.random.PRNGKey(7),
                          jnp.asarray(members))
         settings, n_train, ours, samples = port.result()
-    assert settings == (8, 8, 0.9, 100)
+    assert settings == _job_settings(jcfg)
     assert jx.shape[0] == n_train == {JOB: 9000, WIDTH_JOB: 12165}.get(
         name, n_train)
     return ((ours, samples),
-            (_stats(theirs), np.asarray(theirs.samples, np.float32)))
+            (_stats(theirs), np.asarray(theirs.samples, np.float32)),
+            settings)
 
 
 def _compare(a: dict, b: dict, draws: int) -> None:
@@ -157,7 +211,7 @@ def _compare(a: dict, b: dict, draws: int) -> None:
     for k in ('accept', 'steps'):
         print(f'{k}: port {a[k].mean():.4f} ± {_se(a[k]):.4f}, JAX '
               f'{b[k].mean():.4f} ± {_se(b[k]):.4f}')
-    print(f'divergent over {draws} draws x 12 chains: port '
+    print(f'divergent over {draws} draws x {len(a["eps"])} chains: port '
           f'{a["divergent"]}, JAX {b["divergent"]}')
     assert abs(log_ratio.mean()) <= 3 * _se(log_ratio)
     for k in ('accept', 'steps'):
@@ -173,9 +227,90 @@ def test_nuts_window_adaptation_from_the_same_members(source, tmp_path):
         members = _warm_start(card.catalogue_job(name), tmp_path / 'ws')
     else:
         members = card.members(name)
-    (ours, _), (theirs, _) = _both_packages(name, members, DRAWS, tmp_path)
-    print(f'\nmembers: {source} ({name})')
+    chains = SUBSET if source in SUBSET_SOURCES else range(len(members))
+    (ours, _), (theirs, _), settings = _both_packages(
+        name, members[list(chains)], DRAWS, tmp_path)
+    assert settings == DEPTH_8
+    print(f'\nmembers: {source} ({name}), chains {list(chains)}')
     _compare(ours, theirs, DRAWS)
+
+
+def _compare_windows(a: dict, b: dict) -> None:
+    """Print both packages' acceptance by window of draws and hold each
+    window's mean, and each chain's first-to-last drop, to each other."""
+    wa, wb = _windows(a['accept_draws']), _windows(b['accept_draws'])
+    for k, (w, stats) in (('port', (wa, a)), ('JAX', (wb, b))):
+        print(f'{k} acceptance by {WINDOW} draws: '
+              + ' '.join(f'{m:.3f}' for m in w.mean(axis=0)))
+        print(f'{k} per chain, first and last window: '
+              + ' '.join(f'{f:.3f}->{l:.3f}' for f, l in zip(w[:, 0],
+                                                             w[:, -1])))
+        print(f'{k} divergent per chain: {stats["divergent_chains"].tolist()}')
+    for i in range(wa.shape[1]):
+        assert abs(wa[:, i].mean() - wb[:, i].mean()) <= 3 * np.hypot(
+            _se(wa[:, i]), _se(wb[:, i])), i
+    drop = (wa[:, 0] - wa[:, -1]) - (wb[:, 0] - wb[:, -1])
+    print(f'first-to-last drop: port {(wa[:, 0] - wa[:, -1]).mean():+.4f}, '
+          f'JAX {(wb[:, 0] - wb[:, -1]).mean():+.4f}; paired difference '
+          f'{drop.mean():+.4f} ± {_se(drop):.4f}')
+    assert abs(drop.mean()) <= 3 * _se(drop)
+
+
+@pytest.mark.parametrize('subset', list(SUBSETS))
+def test_acceptance_over_a_jobs_draws_from_the_same_members(subset,
+                                                            tmp_path):
+    chains = list(SUBSETS[subset])
+    members = card.members('protein_nuts_n10000_r2')[chains]
+    print(f'\nmembers: the card\'s protein_nuts_n10000_r2, chains '
+          f'{chains} of 12; {JOB_DRAWS} draws')
+    (ours, draws), (theirs, _), settings = _both_packages(
+        'protein_nuts_n10000_r2', members, JOB_DRAWS, tmp_path)
+    assert settings == DEPTH_8
+    assert draws.shape == (len(chains), JOB_DRAWS, 738)
+    assert ours['accept_draws'].shape == theirs['accept_draws'].shape == (
+        len(chains), JOB_DRAWS)
+    _compare(ours, theirs, JOB_DRAWS)
+    _compare_windows(ours, theirs)
+
+
+# (nuts_ta job, member) whose chain stuck on the card from its first
+# draws: far under its target acceptance, with divergences in the
+# hundreds (ta80_r2's member 5: 0.41 over 1,000 draws, 0.56, 0.42, 0.26
+# in its first three windows of 100)
+ONE_CHAIN = [('bike_nuts_ta80_r2', 5)]
+CHAIN_DRAWS = 300
+# a chain sticks when its acceptance falls this far under the target or
+# a tenth of its draws diverge
+STUCK_BELOW_TARGET = 0.3
+STUCK_DIVERGENT = 0.1
+
+
+def _sticks(stats: dict, target: float, draws: int) -> bool:
+    return bool(stats['accept'][0] < target - STUCK_BELOW_TARGET
+                or stats['divergent'] > STUCK_DIVERGENT * draws)
+
+
+@pytest.mark.parametrize('job,member', ONE_CHAIN)
+def test_one_chain_of_a_target_acceptance_job(job, member, tmp_path):
+    provider = card.provider(job)
+    members = card.members(provider)[[member]]
+    (ours, _), (theirs, _), settings = _both_packages(
+        job, members, CHAIN_DRAWS, tmp_path)
+    target = settings[2]
+    # no warm-up depth of its own: the adaptation's trees go to depth 10 too
+    assert settings == (10, None, target, 100)
+    print(f'\nmember {member} of the card\'s {provider}, {job}: target '
+          f'{target}, {CHAIN_DRAWS} draws')
+    stuck = {}
+    for k, stats in (('port', ours), ('JAX', theirs)):
+        w = _windows(stats['accept_draws'])[0]
+        stuck[k] = _sticks(stats, target, CHAIN_DRAWS)
+        print(f'{k}: ε {stats["eps"][0]:.6f}, acceptance '
+              f'{stats["accept"][0]:.4f} (by {WINDOW} draws '
+              + ' '.join(f'{m:.3f}' for m in w)
+              + f'), evaluations a draw {stats["steps"][0]:.1f}, divergent '
+              f'{stats["divergent"]}, sticks {stuck[k]}')
+    assert stuck['port'] == stuck['JAX']
 
 
 def mean_ess(samples: np.ndarray, name: str) -> float:
@@ -199,8 +334,9 @@ def jackknife_se(samples: np.ndarray, name: str) -> float:
 
 def test_width_48_mean_ess_from_the_cards_members(tmp_path):
     members = card.members(WIDTH_JOB)
-    (ours, port_draws), (theirs, jax_draws) = _both_packages(
+    (ours, port_draws), (theirs, jax_draws), settings = _both_packages(
         WIDTH_JOB, members, DRAWS, tmp_path)
+    assert settings == DEPTH_8
     assert port_draws.shape == jax_draws.shape == (12, DRAWS, 5426)
     print(f'\nmembers: the card\'s {WIDTH_JOB}')
     ess = {k: (mean_ess(d, WIDTH_JOB), jackknife_se(d, WIDTH_JOB))

@@ -210,19 +210,20 @@ COMPLEXITY_RNG = 1
 WIDE_STEPS = 10_000
 
 
-def complexity_members(width: int, root: Path, rng: int = COMPLEXITY_RNG
-                       ) -> Path:
-    """The port's warm start of ``complexity_bike_mclmc.yaml`` at hidden
-    width ``width`` (three layers) for seed ``rng``, at the TPU's one
-    bfloat16 pass as the study ran on the card: the run directory."""
+def complexity_members(width: int, root: Path, rng: int = COMPLEXITY_RNG,
+                       config: str = COMPLEXITY, arm: str = 'mclmc') -> Path:
+    """The port's warm start of ``config`` (``complexity_bike_mclmc.yaml``
+    unless said) at hidden width ``width`` (three layers) for seed
+    ``rng``, at the TPU's one bfloat16 pass as the study ran on the card:
+    the run directory, named as the catalogue's ``bike_<arm>_<widths>_r<rng>``."""
     from mile_tpu_torch.config import Config
     from mile_tpu_torch.train.trainer import BDETrainer
     from mile_tpu_torch.utils import precision
 
-    (cfg,) = Config.from_file(ROOT / COMPLEXITY)
+    (cfg,) = Config.from_file(ROOT / config)
     tag = 'x'.join([str(width)] * 3)
     cfg = cfg.replace(**{'saving_dir': str(root), 'rng': rng,
-                         'experiment_name': f'bike_mclmc_{tag}_r{rng}',
+                         'experiment_name': f'bike_{arm}_{tag}_r{rng}',
                          'model.hidden_structure': [width] * 3 + [2]})
     prev = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -237,7 +238,7 @@ def complexity_members(width: int, root: Path, rng: int = COMPLEXITY_RNG
 
 
 def width_check(members: Path, width: int, root: Path,
-                steps: int = WIDE_STEPS) -> dict:
+                steps: int = WIDE_STEPS, config: str = COMPLEXITY) -> dict:
     """Three tuners from the same ``complexity`` members: the JAX package's
     and the port's in exact float32, and the port's at the one pass. Per
     chain ε and L, their means with standard errors, and the paired
@@ -245,12 +246,12 @@ def width_check(members: Path, width: int, root: Path,
     # the config's tuner precision is exact float32; --tpu-arithmetic
     # makes it None, the one pass
     over = {'model.hidden_structure': [width] * 3 + [2]}
-    procs = {'port_exact': port_tune(members, COMPLEXITY_RNG, COMPLEXITY,
+    procs = {'port_exact': port_tune(members, COMPLEXITY_RNG, config,
                                      over, steps=steps),
-             'port_one_pass': port_tune(members, COMPLEXITY_RNG, COMPLEXITY,
+             'port_one_pass': port_tune(members, COMPLEXITY_RNG, config,
                                         over, ['--tpu-arithmetic'],
                                         steps=steps)}
-    out = {'jax_exact': jax_tune(members, COMPLEXITY_RNG, root, COMPLEXITY,
+    out = {'jax_exact': jax_tune(members, COMPLEXITY_RNG, root, config,
                                  over, steps=steps)}
     for name, proc in procs.items():
         stdout, _ = proc.communicate()
@@ -261,7 +262,8 @@ def width_check(members: Path, width: int, root: Path,
     for name, (eps, L) in out.items():
         record[name] = {'step_size': eps.tolist(), 'L': L.tolist(),
                         'step_size_mean_se': list(mean_se(eps)),
-                        'L_mean_se': list(mean_se(L))}
+                        'L_mean_se': list(mean_se(L)),
+                        'L_not_finite': int((~np.isfinite(L)).sum())}
     want, got = out['jax_exact'], out['port_exact']
     record['paired_diff'] = {
         name: list(mean_se(got[i] - want[i]))
@@ -281,3 +283,30 @@ def test_complexity_width_tuners_from_the_same_members(tmp_path, width):
         dm, dse = record['paired_diff'][name]
         assert np.isfinite(record['port_exact'][name]).all()
         assert abs(dm) < 3 * dse, (name, record['paired_diff'])
+
+
+COMPLEXITY_DE = 'configs/ablations/complexity_bike_de.yaml'
+# the DE arm's tuner budget: the config's warmup_steps (800 + 100 + 100)
+DE_STEPS = 1_000
+
+
+@pytest.mark.parametrize('width', (16, 32))
+def test_complexity_de_tuners_from_the_same_members(tmp_path, width):
+    """``complexity``'s DE arm (``bike_de_<widths>_r1``: its own warm
+    start, then 1,000 tuner steps): the rows' L is NaN in 11 of its 12
+    jobs, their ε 1e-6 to 5e-5. From the same members the JAX package's
+    tuner and the port's, exact, land on finite L and agree; the port's
+    one pass (the rows' arithmetic) collapses ε by more than a hundred
+    times, as the rows' is, and its L stays finite."""
+    members = complexity_members(width, tmp_path, config=COMPLEXITY_DE,
+                                 arm='de')
+    record = width_check(members, width, tmp_path, steps=DE_STEPS,
+                         config=COMPLEXITY_DE)
+    print(json.dumps(record))
+    for name in ('jax_exact', 'port_exact', 'port_one_pass'):
+        assert record[name]['L_not_finite'] == 0, (name, record[name])
+    for name in ('step_size', 'L'):
+        dm, dse = record['paired_diff'][name]
+        assert abs(dm) < 3 * dse, (name, record['paired_diff'])
+    exact = record['port_exact']['step_size_mean_se'][0]
+    assert record['port_one_pass']['step_size_mean_se'][0] < 0.01 * exact
