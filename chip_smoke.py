@@ -86,9 +86,7 @@ each job's K1/K3 launches, K1 and K3 against their plain versions at
 each job's shape (also timed there), the warm starts its consumers reuse,
 the skip
 of done jobs and the STOP file, then ``pool_results.pool`` and
-``summarize_study.summarize`` over the results; the runner's fault
-contract with a real device-side assert and a hang, in worker processes
-(this script run again with ``--catalog-fault-worker MODE ROOT``); the
+``summarize_study.summarize`` over the results; the
 wide-FCN dtype A/B (``experiments/torch_dtype_ab_widefcn.py``) at width
 512, dim 592,386, its four arms in subprocesses, K1 and K3 on the
 streaming-cluster route, and one step there through the kernels against
@@ -100,8 +98,12 @@ multi-process phase warm starts the main path's members through
 The study queue: the relaunch loop (``experiments/torch_catalog_queue.py``)
 over this script as its runner (``--catalog-fault-worker assert``): a real
 device-side assert relaunched after each 70 until the job's second strike
-makes the next launch skip it, the stage pooled, and a STOP file ending a
-later stage with 75 unpooled; then one stage of five studies
+makes the next launch skip it, each launch's strikes and records (the
+runner's fault contract), the stage pooled, and a STOP file ending a
+later stage with 75 unpooled; a worker whose job sleeps past
+``--job-timeout`` exits 70 with a hang strike. These and the uncapped
+loop below run in a second thread, in processes of their own, beside one
+stage of five studies
 (``QUEUE_STAGE``, one runner process: ``--catalog-cut-worker``) through
 the loop, its jobs cut to ``CATALOG_CUT``: the dataset study's six r1
 jobs, pooled and compared by ``experiments/torch_compare_study.py``, with
@@ -116,8 +118,9 @@ chains' diagnostics), K1 and K3 against their plain versions at
 ``MIXED_SHAPES``; with them the datasize study's NUTS job at 5,000 rows,
 cut to ``CATALOG_NUTS_CUT``, reusing the warm start of its MCLMC provider
 run before it in the same root, compared also on the third table (the
-trees' acceptance, leapfrog steps and divergences). Then, through a loop
-of its own under ``--tpu-arithmetic``, the uncapped NUTS arm's cut job
+trees' acceptance, leapfrog steps and divergences). Beside them,
+through a loop of its own under ``--tpu-arithmetic``, the uncapped NUTS
+arm's cut job
 (``UNCAPPED_NUTS_JOB``: the diagnostics study's deep-8 FCN on energy at
 tree depth 10 and its rows' target acceptance 0.8) after its MCLMC
 provider in the same root: the two settings in its config, its pooled row
@@ -147,6 +150,12 @@ and the airfoil trainer cut to ``PRECISION_CUT`` at the exact default and
 under the TPU setting (``torch_run_catalog.py --tpu-arithmetic``) in
 turns, with K1/K3 launches, the one-pass products counted, the recorded
 setting and each run's sampling chain-steps/s.
+
+NUTS from copies of one member: ``experiments/torch_nuts_members.py`` cut
+to ``NUTS_MEMBERS_ARGS`` (4 copies of a member of the ``nuts_ta``
+provider's fixture, ``bike_nuts_ta80_r2``'s settings, depth 5, 10 + 10
+steps, the graphed leaf with its split-row gradient over 12,165 rows): a
+whole JSON line, each copy's ε finite, the copies' draws apart.
 
 The headline bench: ``bench_torch.py``'s modes in this process at full
 width with the step counts cut (``BENCH_*``): the headline at 12 and 48
@@ -376,16 +385,16 @@ REUSE_RESULTS = ROOT / 'results' / 'chip_smoke_reuse'
 # width (dim 61,706) on the image path's synthetic archive: the
 # reference's batch 64, 30 leapfrog steps, step 5e-4 and mass 0.01, on
 # 4,096 images (3,153 for training: 49 shards, 2 x 49 x 30 = 2,940 shard
-# gradients a proposal), 2 proposals of which 1 is burnt (on an NVIDIA
-# H100 80GB HBM3 at 700 W a proposal took 7.4-15.5 s, host-bound, and 6
-# proposals, 2 burnt, made the phase 123 s on the slower host). One
+# gradients a proposal), 1 proposal, none burnt (on an NVIDIA H100 80GB
+# HBM3 at 700 W a proposal took 7.4-20.1 s, host-bound, and 6 proposals,
+# 2 burnt, made the phase 123 s on the slower host). One
 # split-leapfrog step (98 shard gradients) on the card against the CPU's
 # from the same theta and p in float32: the end point's change within
 # SPLIT_STEP_RTOL of the largest change, for theta and p apart (the image
 # path's likelihood gradient agrees card vs CPU to about 3e-5 of its max)
 SPLIT_SCRIPT = ROOT / 'experiments' / 'torch_symmetric_splitting.py'
 SPLIT_ARGS = ['--source', 'local', '--datapoint-limit', '4096',
-              '--num-samples', '2', '--burn', '1']
+              '--num-samples', '1', '--burn', '0']
 SPLIT_SHAPE = (49, 64, 61_706)   # shards, batch, dim
 SPLIT_STEP_RTOL = 1e-4
 # More than one device, on one card: a mesh whose entries repeat cuda:0.
@@ -471,8 +480,8 @@ CATALOG_NUTS_CUT = {'training.warmstart.max_epochs': 2,
                     'training.sampler.n_samples': 8}
 # The runner's fault contract with real CUDA errors: this script run again
 # with --catalog-fault-worker MODE ROOT, its trainer replaced by one that
-# indexes out of range on the card (a device-side assert), three times
-# over one root; then one whose job sleeps past --job-timeout
+# indexes out of range on the card (a device-side assert), as the study
+# queue's drill runner; and one whose job sleeps past --job-timeout
 FAULT_RESULTS = ROOT / 'results' / 'chip_smoke_catalog_fault'
 FAULT_JOB = ['--only', 'datasize', '--name-filter',
              '^protein_mclmc_n40000_r1$']
@@ -480,7 +489,10 @@ FAULT_HANG_TIMEOUT_S = 5
 FAULT_WORKER_TIMEOUT_S = 300
 # The study queue's relaunch loop (experiments/torch_catalog_queue.py) on
 # the card: a drill with the assert worker above as its runner (cool-off
-# 1 s), then a STOP file ending a later stage; then the dataset study's six
+# 1 s), then a STOP file ending a later stage, then the hang worker, in a
+# second thread beside the main stage (they are mostly process starts,
+# about 90 s on an NVIDIA H100 80GB HBM3 host at 700 W, which the main
+# stage's 108 s covers); the main stage: the dataset study's six
 # r1 jobs with their step counts cut to CATALOG_CUT (this script run again
 # with --catalog-cut-worker as the runner), pooled into QUEUE_AGGR (never
 # aggr_results_torch/) and compared with torch_compare_study.py
@@ -594,15 +606,24 @@ NUTS_SCRIPTS = {'torch_time_warmup.py': ['3', '8'],
                 'torch_profile_nuts.py': ['--warmup-steps', '3',
                                           '--draws', '2']}
 NUTS_SCRIPT_TIMEOUT_S = 600
+# experiments/torch_nuts_members.py cut: copies of a member of the nuts_ta
+# provider bike_mclmc_16x16x16_r2 (a fixture; member 5 stuck on the card in
+# bike_nuts_ta80_r2) through bike_nuts_ta80_r2's NUTS, trees to depth 5
+NUTS_MEMBERS_JOB = 'bike_nuts_ta80_r2'
+NUTS_MEMBERS = ROOT / 'tests' / 'fixtures' / 'card_members' / \
+    'bike_mclmc_16x16x16_r2'
+NUTS_MEMBERS_COPIES = 4
+NUTS_MEMBERS_ARGS = ['--member', '5', '--replicas', str(NUTS_MEMBERS_COPIES),
+                     '--depth', '5', '--warmup-steps', '10', '--draws', '10']
 # The bench phase: bench_torch.py's modes in this process at full width
 # (the airfoil FCN, LeNet over 60,000 images, the wide FCN over 65,536
-# rows), the step counts cut: the headline's tuner to 200 steps (of 2,000)
-# and 3 timed blocks of 150 (of 7 of 3,000), the warm start to 10 epochs
+# rows), the step counts cut: the headline's tuner to 100 steps (of 2,000)
+# and 3 timed blocks of 100 (of 7 of 3,000), the warm start to 10 epochs
 # (of 200), the airfoil chain scaling to 50 steps (of 1,000), the wide
 # FCN's to 3 (of 10), the LeNet and wide-FCN points to 3 (of 30 and 10),
 # the CPU denominators to 50 steps
 BENCH_RESULTS = ROOT / 'results' / 'chip_smoke_bench'
-BENCH_HEADLINE = {'warmup_steps': 200, 'timed_steps': 150, 'n_repeats': 3}
+BENCH_HEADLINE = {'warmup_steps': 100, 'timed_steps': 100, 'n_repeats': 3}
 BENCH_WS_EPOCHS = 10
 BENCH_AIRFOIL = ([12, 48, 192, 768, 1_536], 50)
 BENCH_FCN = ([4, 12, 48], 3)
@@ -3256,71 +3277,58 @@ Step by step: each card step is held against the same step taken on
                   f'{row["chain_steps_per_s"]:.0f} chain-steps/s')
         self.timings['catalog'] = {'wall_s': wall, 'jobs': per_job}
 
-    def _fault_worker(self, mode: str, root: Path) -> tuple:
-        """This script as a catalogue worker (``mode`` 'assert' or 'hang')
-        over ``root``: (exit code, strikes, queue records, output)."""
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()),
-             '--catalog-fault-worker', mode, str(root)],
-            cwd=ROOT, capture_output=True, text=True,
-            timeout=FAULT_WORKER_TIMEOUT_S)
+    @staticmethod
+    def _jsonl(path: Path) -> list:
+        """The records of the JSON-lines file ``path``; none if it is
+        absent."""
+        return ([json.loads(x) for x in path.read_text().splitlines()]
+                if path.exists() else [])
 
-        def lines(name):
-            path = root / name
-            return ([json.loads(x) for x in path.read_text().splitlines()]
-                    if path.exists() else [])
-
-        return (proc.returncode, lines('FAULTS.jsonl'),
-                lines('queue.jsonl'), proc.stdout + proc.stderr)
-
-    def catalog_fault(self):
-        """The runner's fault contract with a real device-side assert, in
-        worker processes: the first launch exits 70 with one strike and a
-        failed record, the second 70 with two strikes, the third skips the
-        job without a trainer and exits 0; a job that sleeps past
-        ``--job-timeout`` exits 70 with a hang strike."""
+    def _hang_run(self) -> tuple:
+        """This script as a catalogue worker whose job sleeps past
+        ``--job-timeout``: (exit code, strikes, records, output,
+        seconds)."""
         import shutil
 
-        for root in (FAULT_RESULTS / 'assert', FAULT_RESULTS / 'hang'):
-            shutil.rmtree(root, ignore_errors=True)
-        runs, seconds = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            runs.append(self._fault_worker('assert', FAULT_RESULTS / 'assert'))
-            seconds.append(time.perf_counter() - t0)
-        (rc1, s1, q1, out1), (rc2, s2, q2, out2), (rc3, s3, q3, out3) = runs
-        error = q1[0]['error'] if q1 else ''
-        self.check(rc1 == 70 and len(s1) == 1 and len(q1) == 1
-                   and q1[0]['ok'] is False and 'CUDA error' in error,
-                   f'launch 1: exit {rc1}, {len(s1)} strike, record '
-                   f'{error[:120]!r}')
-        self.check(rc2 == 70 and len(s2) == 2 and len(q2) == 2,
-                   f'launch 2: exit {rc2}, {len(s2)} strikes')
-        self.check(rc3 == 0 and len(s3) == 2 and len(q3) == 2,
-                   f'launch 3: exit {rc3}, the job skipped without a '
-                   f'trainer ({len(q3)} records)')
+        root = FAULT_RESULTS / 'hang'
+        shutil.rmtree(root, ignore_errors=True)
         t0 = time.perf_counter()
-        rc, strikes, queue, out = self._fault_worker('hang',
-                                                     FAULT_RESULTS / 'hang')
-        seconds.append(time.perf_counter() - t0)
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             '--catalog-fault-worker', 'hang', str(root)],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=FAULT_WORKER_TIMEOUT_S)
+        return (proc.returncode, self._jsonl(root / 'FAULTS.jsonl'),
+                self._jsonl(root / 'queue.jsonl'), proc.stdout + proc.stderr,
+                time.perf_counter() - t0)
+
+    def _hang_check(self, hang: tuple) -> float:
+        """``_hang_run``'s worker exits 70 with a hang strike: its
+        seconds."""
+        rc, strikes, queue, out, seconds = hang
         self.check(rc == 70 and len(strikes) == 1
                    and strikes[0].get('hang') is True
                    and queue and queue[0]['error'] == 'hang',
                    f'a job sleeping past --job-timeout '
                    f'{FAULT_HANG_TIMEOUT_S}: exit {rc}, strikes {strikes}')
-        for rc_, text in ((rc1, out1), (rc2, out2), (rc3, out3), (rc, out)):
-            if rc_ not in (0, 70):
-                print(textwrap.indent(text[-3000:], '    '))
-        self.timings['catalog_fault_s'] = seconds
+        if rc not in (0, 70):
+            print(textwrap.indent(out[-3000:], '    '))
+        return seconds
 
     def catalog_queue(self):
-        """The study queue's relaunch loop on the card. A drill: with the
-        assert worker as its runner, launches 1 and 2 exit 70 (a real
-        device-side assert, one strike each) and are relaunched after the
-        cool-off, launch 3 skips the twice-struck job and exits 0, and the
-        stage is pooled; then, with a STOP file in the root, that stage
-        exits 0 and is pooled again, and a later stage exits 75, is not
-        pooled, and ends the loop with 75. Then one stage of five studies
+        """The study queue's relaunch loop and the runner's fault contract
+        on the card. A drill: with the assert worker as its runner,
+        launches 1 and 2 exit 70 (a real device-side assert, one strike
+        and one failed record each) and are relaunched after the cool-off,
+        launch 3 skips the twice-struck job without a trainer and exits 0,
+        and the stage is pooled; then, with a STOP file in the root, that
+        stage exits 0 and is pooled again, and a later stage exits 75, is
+        not pooled, and ends the loop with 75; a worker whose job sleeps
+        past ``--job-timeout`` exits 70 with a hang strike. The drill, the
+        hang and the uncapped NUTS loop (``_queue_uncapped``) run in a
+        second thread, each in processes and a root of its own, while the
+        main stage runs; they are checked after it. The main stage: one
+        stage of five studies
         (QUEUE_STAGE) through the loop with the real runner, one process:
         the dataset study's six r1 jobs, cut to CATALOG_CUT (exit 0, one
         pooled row each, every compared metric finite in
@@ -3330,18 +3338,27 @@ Step by step: each card step is held against the same step taken on
         and one cut job of each mixed study's, each comparison with its
         chain diagnostics. And the catalogue phase's cut sonar and
         hyper_params jobs pooled and compared."""
+        from concurrent.futures import ThreadPoolExecutor
+
         tq = self._experiments('torch_catalog_queue')
-        drill_s = self._queue_drill(tq)
-        run = self._queue_run(tq)
-        self._queue_dataset(run)
-        self.timings['catalog_queue']['drill_s'] = drill_s
-        self.timings['catalog_queue']['classif_s'] = self._queue_catalog(
-            'tabular_classif', CLASSIF_JOBS, CLASSIF_METRICS, 5)
-        self.timings['catalog_queue']['hyper_params_s'] = self._queue_catalog(
-            'hyper_params', HYPER_JOBS, HYPER_METRICS, 3)
-        self._queue_feasibility(run)
-        self.timings['catalog_queue']['mixed'] = self._queue_mixed(run)
-        self.timings['catalog_queue']['uncapped'] = self._queue_uncapped(tq)
+        with ThreadPoolExecutor(max_workers=1) as second:
+            beside = second.submit(lambda: (
+                self._queue_drill_runs(tq), self._hang_run(),
+                self._queue_run(tq, UNCAPPED_STAGE, UNCAPPED_RESULTS,
+                                UNCAPPED_AGGR, tpu_arithmetic=True)))
+            run = self._queue_run(tq)
+            self._queue_dataset(run)
+            timings = self.timings['catalog_queue']
+            timings['classif_s'] = self._queue_catalog(
+                'tabular_classif', CLASSIF_JOBS, CLASSIF_METRICS, 5)
+            timings['hyper_params_s'] = self._queue_catalog(
+                'hyper_params', HYPER_JOBS, HYPER_METRICS, 3)
+            self._queue_feasibility(run)
+            timings['mixed'] = self._queue_mixed(run)
+            drill, hang, uncapped = beside.result()
+        timings['drill_s'] = self._queue_drill(drill)
+        timings['hang_s'] = self._hang_check(hang)
+        timings['uncapped'] = self._queue_uncapped(uncapped)
 
     def _queue_run(self, tq, stage=QUEUE_STAGE, root=QUEUE_RESULTS,
                    aggr=QUEUE_AGGR, tpu_arithmetic: bool = False) -> dict:
@@ -3663,9 +3680,10 @@ Step by step: each card step is held against the same step taken on
         return {'wall_s': record['wall_s'], 'reused_warmstart': reused,
                 'launches': record['launches']}
 
-    def _queue_uncapped(self, tq) -> dict:
+    def _queue_uncapped(self, run: dict) -> dict:
         """The uncapped NUTS job (UNCAPPED_NUTS_JOB) after its provider
-        through a loop of its own under ``--tpu-arithmetic``: both ok, the
+        through a loop of its own under ``--tpu-arithmetic`` (``run``, its
+        ``_queue_run`` over UNCAPPED_RESULTS): both ok, the
         provider's K1/K3 3 and 1 a step and none on NUTS, the provider's
         warm start reused; tree depth 10 and target acceptance 0.8 in the
         job's config (with the one bfloat16 pass), in its pooled row, in
@@ -3674,8 +3692,6 @@ Step by step: each card step is held against the same step taken on
         import pandas as pd
         import yaml
 
-        run = self._queue_run(tq, UNCAPPED_STAGE, UNCAPPED_RESULTS,
-                              UNCAPPED_AGGR, tpu_arithmetic=True)
         names = [UNCAPPED_NUTS_PROVIDER, UNCAPPED_NUTS_JOB]
         records = self._queue_through(
             run, 'the uncapped NUTS job after its provider', names)
@@ -3752,9 +3768,11 @@ Step by step: each card step is held against the same step taken on
                                for r in nuts.itertuples())
                    + f'; {last!r}')
 
-    def _queue_drill(self, tq) -> list:
-        """The loop's fault drill and STOP (``catalog_queue``'s first
-        half): the seconds of each of its two runs."""
+    def _queue_drill_runs(self, tq) -> dict:
+        """The loop over the assert worker, then again with a STOP file
+        (``catalog_queue``'s drill): each loop's exit code, stage results
+        and seconds, and the root's strikes, records and log after the
+        first."""
         import shutil
 
         root, aggr = QUEUE_DRILL_RESULTS, QUEUE_DRILL_RESULTS / 'aggr'
@@ -3765,40 +3783,67 @@ Step by step: each card step is held against the same step taken on
         drill = tq.Queue(root, aggr_dir=aggr, device=self.dev.type,
                          cooloff_s=QUEUE_COOLOFF_S, runner=worker)
         t0 = time.perf_counter()
-        rc = drill.run([fault_stage])
-        drill_s = time.perf_counter() - t0
-        (result,) = drill.results
-        strikes = (root / 'FAULTS.jsonl').read_text().splitlines() \
-            if (root / 'FAULTS.jsonl').exists() else []
-        log = drill.log_path.read_text()
-        self.check(rc == 0 and result.exit_codes == [70, 70, 0]
-                   and len(strikes) == 2 and 'CUDA error' in log
-                   and log.count('cooling off') == 2
-                   and result.pooled == aggr / f'aggr_{fault_stage.study}.csv'
-                   and result.pooled.exists(),
-                   f'the loop over the assert worker: runner exit codes '
-                   f'{result.exit_codes} (want 70 70 0: relaunched after '
-                   f'each fault, the job skipped at its second strike), '
-                   f'{len(strikes)} strikes, pooled into {result.pooled}, '
-                   f'{drill_s:.1f} s')
+        out = {'rc': drill.run([fault_stage]),
+               'seconds': time.perf_counter() - t0,
+               'result': drill.results[0], 'stage': fault_stage,
+               'strikes': self._jsonl(root / 'FAULTS.jsonl'),
+               'records': self._jsonl(root / 'queue.jsonl'),
+               'log': drill.log_path.read_text()}
         (root / 'STOP').touch()
         stop = tq.Queue(root, aggr_dir=aggr, device=self.dev.type,
                         cooloff_s=QUEUE_COOLOFF_S, runner=worker)
         t0 = time.perf_counter()
-        rc = stop.run([fault_stage, tq.Stage(*QUEUE_STOP_STAGE)])
-        stop_s = time.perf_counter() - t0
-        codes = [r.exit_codes for r in stop.results]
-        pooled = [r.pooled is not None for r in stop.results]
-        self.check(rc == 75 and codes == [[0], [75]]
+        out['stop_rc'] = stop.run([fault_stage, tq.Stage(*QUEUE_STOP_STAGE)])
+        out['stop_seconds'] = time.perf_counter() - t0
+        out['stop_results'] = stop.results
+        out['stop_pooled_later'] = (
+            aggr / f'aggr_{QUEUE_STOP_STAGE[0]}.csv').exists()
+        out['stop_left'] = (root / 'STOP').exists()
+        return out
+
+    def _queue_drill(self, drill: dict) -> list:
+        """``_queue_drill_runs``' loops checked, launch by launch: the
+        seconds of each loop."""
+        result, strikes, records = (drill['result'], drill['strikes'],
+                                    drill['records'])
+        codes, log = result.exit_codes, drill['log']
+        error = records[0]['error'] if records else ''
+        self.check(codes[:1] == [70] and len(strikes) >= 1
+                   and bool(records) and records[0]['ok'] is False
+                   and 'CUDA error' in error,
+                   f'launch 1: exit {codes[:1]}, a strike, record '
+                   f'{error[:120]!r}')
+        self.check(codes[1:2] == [70] and len(strikes) == 2
+                   and len(records) == 2,
+                   f'launch 2: exit {codes[1:2]}, {len(strikes)} strikes')
+        self.check(codes[2:] == [0] and len(strikes) == 2
+                   and len(records) == 2,
+                   f'launch 3: exit {codes[2:]}, the job skipped without a '
+                   f'trainer ({len(records)} records)')
+        self.check(drill['rc'] == 0 and codes == [70, 70, 0]
+                   and 'CUDA error' in log
+                   and log.count('cooling off') == 2
+                   and result.pooled == QUEUE_DRILL_RESULTS / 'aggr' /
+                   f'aggr_{drill["stage"].study}.csv'
+                   and result.pooled.exists(),
+                   f'the loop over the assert worker: runner exit codes '
+                   f'{codes} (want 70 70 0: relaunched after each fault, '
+                   f'the job skipped at its second strike), {len(strikes)} '
+                   f'strikes, pooled into {result.pooled}, '
+                   f'{drill["seconds"]:.1f} s')
+        stop_codes = [r.exit_codes for r in drill['stop_results']]
+        pooled = [r.pooled is not None for r in drill['stop_results']]
+        self.check(drill['stop_rc'] == 75 and stop_codes == [[0], [75]]
                    and pooled == [True, False]
-                   and not (aggr / f'aggr_{QUEUE_STOP_STAGE[0]}.csv').exists()
-                   and not (root / 'STOP').exists(),
-                   f'a STOP file: the stages exit {codes} (want [0] and '
-                   f'[75]), pooled {pooled} (want the first only); the '
-                   f'loop exits {rc}, {stop_s:.1f} s')
-        if rc != 75 or result.exit_codes != [70, 70, 0]:
+                   and not drill['stop_pooled_later']
+                   and not drill['stop_left'],
+                   f'a STOP file: the stages exit {stop_codes} (want [0] '
+                   f'and [75]), pooled {pooled} (want the first only); the '
+                   f'loop exits {drill["stop_rc"]}, '
+                   f'{drill["stop_seconds"]:.1f} s')
+        if drill['stop_rc'] != 75 or codes != [70, 70, 0]:
             print(textwrap.indent(log[-3000:], '    '))
-        return [drill_s, stop_s]
+        return [drill['seconds'], drill['stop_seconds']]
 
     def preemption(self):
         """A real preemption and ``profile: true`` on the card. A worker
@@ -4342,6 +4387,54 @@ Step by step: each card step is held against the same step taken on
                            f'{proc.returncode}, {values}, {wall:.1f} s')
             out[script] = {**values, 'wall_s': wall}
         self.timings['nuts_scripts'] = out
+
+    def nuts_members(self):
+        """``torch_nuts_members.py`` on the card (``NUTS_MEMBERS_ARGS``):
+        exit 0 and a whole JSON line, one entry a copy, each ε finite,
+        the copies' draws apart."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / 'experiments' /
+                                 'torch_nuts_members.py'),
+             '--job', NUTS_MEMBERS_JOB, '--members', str(NUTS_MEMBERS),
+             *NUTS_MEMBERS_ARGS, '--device', self.dev.type], cwd=ROOT,
+            capture_output=True, text=True, timeout=NUTS_SCRIPT_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            rec = {}
+        if proc.returncode != 0 or not rec:
+            print(textwrap.indent(proc.stderr[-3000:], '    '))
+        self.check(proc.returncode == 0 and bool(rec),
+                   f'torch_nuts_members.py: exit {proc.returncode}, a JSON '
+                   f'line, {wall:.1f} s')
+        n = NUTS_MEMBERS_COPIES
+        keys = ('step_size', 'acceptance', 'acceptance_windows', 'divergent',
+                'divergent_first', 'evaluations', 'sticks', 'sticks_first',
+                'draw_sums')
+        self.check(all(len(rec.get(k, ())) == n for k in keys)
+                   and (rec.get('device', '').startswith(self.dev.type)
+                        and rec.get('max_num_doublings') == 5
+                        and rec.get('draws') == 10),
+                   f'its line whole: {n} copies in each of {len(keys)} '
+                   f'lists, on {rec.get("device")}, depth '
+                   f'{rec.get("max_num_doublings")}, {rec.get("draws")} '
+                   f'draws')
+        eps = rec.get('step_size', [])
+        self.check(bool(eps) and all(math.isfinite(e) and e > 0
+                                     for e in eps),
+                   f'each copy\'s ε finite: {eps}')
+        sums = rec.get('draw_sums', [])
+        self.check(len(sums) == n and len(set(sums)) == n
+                   and all(math.isfinite(v) for v in sums),
+                   f'the copies\' draws differ: sums {sums}')
+        self.timings['nuts_members'] = {
+            'wall_s': wall, 'step_size': eps,
+            'acceptance': rec.get('acceptance'),
+            'evaluations': rec.get('evaluations'),
+            'stuck': rec.get('stuck'), 'seconds': rec.get('seconds')}
 
     # ------------------------------------------------------------ bench
     def bench(self):
@@ -5018,11 +5111,10 @@ def main() -> int:
                     '61,706, 49 shards of 64', smoke.split_hmc)
         smoke.phase(f'catalogue: torch_run_catalog.run_queue over '
                     f'{len(CATALOG_JOBS)} jobs at full width', smoke.catalog)
-        smoke.phase('catalogue faults: a device-side assert in worker '
-                    'processes, strikes, skip, hang', smoke.catalog_fault)
         smoke.phase('study queue: torch_catalog_queue.py relaunching a '
-                    'device-side assert, STOP; the dataset study\'s six r1 '
-                    'jobs cut, pooled and compared; K1/K3 at their shapes; '
+                    'device-side assert, STOP, a hang, beside the dataset '
+                    'study\'s six r1 jobs cut, pooled and compared; K1/K3 '
+                    'at their shapes; '
                     'sonar compared through the classification metrics; '
                     'feasibility\'s energy pair cut, compared value by '
                     'value', smoke.catalog_queue)
@@ -5039,6 +5131,9 @@ def main() -> int:
         smoke.phase('NUTS scripts: torch_time_warmup.py and '
                     'torch_profile_nuts.py on bikesharing',
                     smoke.nuts_scripts)
+        smoke.phase('NUTS members: torch_nuts_members.py, 4 copies of one '
+                    'bikesharing member, dim 786, depth 5',
+                    smoke.nuts_members)
         smoke.phase('bench: bench_torch.py\'s modes at full width, step '
                     'counts cut; K1/K3 at the new shapes; the fault drill',
                     smoke.bench)

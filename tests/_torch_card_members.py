@@ -2,14 +2,16 @@
 
 ``tests/fixtures/card_members/<job>/`` holds the ``warmstart/`` directory
 (``layout.json`` and ``params_{0..11}.npz``, as the port writes them) of
-ten catalogue jobs that the port ran at full counts under
+thirteen catalogue jobs that the port ran at full counts under
 ``--tpu-arithmetic`` on an NVIDIA H100 80GB HBM3 (700 W): the ``datasize``
 study's ``protein_nuts_n10000_r{1,2,3}`` and ``protein_nuts_n40000_r{1,2}``
 and the ``complexity`` study's ``bike_nuts_48x48x48_r{1,2,3}``, each of
 which warm-started its own 12 members and sampled from them; and the
 ``complexity`` study's ``bike_mclmc_16x16x16_r{1,2}``, the providers whose
 members the ``nuts_ta`` study's seeds 1 and 2 (and ``complexity``'s
-``bike_nuts_16x16x16_r{1,2}``) sample from. So these are the members
+``bike_nuts_16x16x16_r{1,2}``) sample from; and the ``diagnostics``
+study's ``diag_nuts_airfoil_r{1,2,3}``, which warm-started their own
+(the deep-8 FCN). So these are the members
 behind the port's pooled rows of those jobs.
 
 :func:`members` gives them as the flat ``(12, dim)`` float32 array that
@@ -40,6 +42,9 @@ JOBS = {
     'bike_nuts_48x48x48_r3': ('complexity', 5426),
     'bike_mclmc_16x16x16_r1': ('complexity', 786),
     'bike_mclmc_16x16x16_r2': ('complexity', 786),
+    'diag_nuts_airfoil_r1': ('diagnostics', 426),
+    'diag_nuts_airfoil_r2': ('diagnostics', 426),
+    'diag_nuts_airfoil_r3': ('diagnostics', 426),
 }
 
 

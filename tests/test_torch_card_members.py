@@ -1,7 +1,8 @@
 """The card's warm-start members kept as fixtures (``tests/fixtures/
 card_members/``, loaded by ``tests/_torch_card_members.py``), checked
 against each job's network in both packages: the flat dimension (738 for
-protein, 786 at width 16, 5,426 at width 48), the port's layout of the
+protein, 786 at width 16, 5,426 at width 48, 426 for airfoil's deep-8
+FCN), the port's layout of the
 job's model, and the JAX model's ``ravel_pytree`` order, leaf by leaf;
 and the providers' members against the network of each ``nuts_ta`` job
 that samples from them."""

@@ -30,11 +30,28 @@ steps and ``CHAIN_DRAWS`` draws: a chain that sticks on the card (its
 acceptance far under the target, its divergences in the hundreds) either
 sticks in both packages or is the port's.
 
+``test_copies_of_one_member_of_a_target_acceptance_job``: the same member
+copied into ``REPLICAS`` chains in each package, the same settings and
+steps. NUTS adapts each chain on its own in both packages, so the copies
+are independent runs of the member: the chains that stick
+(``experiments/torch_nuts_members.py``'s rule, over the draws) are
+compared by Fisher's two-sided exact test, and the mean log ε against
+three standard errors of the difference.
+
 ``test_width_48_mean_ess_from_the_cards_members``: the ``complexity``
 study's width-48 cell, from the members of the port's
 ``bike_nuts_48x48x48_r1`` run on the card; besides the NUTS table it
 compares the draws' ``mean_ess`` (the study's: each layer's pooled ESS,
 averaged over the layers) at the same draw count in both packages.
+
+``test_airfoil_fs_split_rhat_from_the_cards_members``: the
+``diagnostics`` study's airfoil NUTS cell (the deep-8 FCN, depth 10,
+target 0.8 as its rows ran), from the members of the port's
+``diag_nuts_airfoil_r2`` and ``_r1`` runs on the card, the job's 100 +
+1,000 steps: besides the NUTS table it compares ``fs_split_rhat`` (the
+split R-hat of the predictive mean on the test split, averaged over the
+points) of both packages' draws, by the port's estimator, against three
+of its jackknife standard errors over chains.
 
 From the members each package runs its HMC-family runtime as the study
 job does: the job's settings as both packages load them (the protein and
@@ -49,8 +66,10 @@ standard errors over chains. The port runs in a process of its own beside
 the JAX package. The test prints every number (``-s``).
 """
 import concurrent.futures
+import json
 import multiprocessing
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +79,8 @@ import _torch_card_members as card
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / 'experiments'))
+
+import torch_nuts_members as nuts_members  # noqa: E402
 
 pytestmark = pytest.mark.slow
 
@@ -81,7 +102,7 @@ SUBSETS = {'members_0-3': (0, 1, 2, 3), 'members_4-7': (4, 5, 6, 7)}
 SUBSET = SUBSETS['members_0-3']
 SUBSET_SOURCES = ('card_n40000_r1',)
 JOB_DRAWS = 1000
-WINDOW = 100
+WINDOW = nuts_members.WINDOW
 # the protein cells' settings: (max_num_doublings,
 # warmup_max_num_doublings, target_acceptance, warmup_steps)
 DEPTH_8 = (8, 8, 0.9, 100)
@@ -152,15 +173,10 @@ def _stats(result) -> dict:
                                 np.float64).mean(axis=1),
             'divergent': int(np.sum(info['is_divergent'])),
             'divergent_chains': np.asarray(info['is_divergent'],
-                                           np.int64).sum(axis=1)}
-
-
-def _windows(accept: np.ndarray, width: int = WINDOW) -> np.ndarray:
-    """Each chain's mean acceptance in consecutive windows of ``width``
-    draws: ``(chains, draws // width)``."""
-    chains, draws = accept.shape
-    n = draws // width
-    return accept[:, :n * width].reshape(chains, n, width).mean(axis=2)
+                                           np.int64).sum(axis=1),
+            'divergent_draws': np.asarray(info['is_divergent'], np.int64),
+            'steps_draws': np.asarray(info['num_integration_steps'],
+                                      np.float64)}
 
 
 def _job_settings(cfg) -> tuple:
@@ -169,11 +185,13 @@ def _job_settings(cfg) -> tuple:
             s.target_acceptance, s.warmup_steps)
 
 
-def _both_packages(name: str, members: np.ndarray, draws: int, root: Path):
+def _both_packages(name: str, members: np.ndarray, draws: int, root: Path,
+                   jax_rows: dict | None = None):
     """(port, JAX): each package's statistics and draws from ``members``;
     the port in a spawned process while the JAX package runs here. Both
-    run the job's settings as each package loads them, and the port's
-    must be the JAX package's (returned as ``settings``)."""
+    run the job's settings as each package loads them (the JAX package's
+    with ``jax_rows`` over them), and the port's must be the JAX
+    package's (returned as ``settings``)."""
     import jax
     import jax.numpy as jnp
 
@@ -187,7 +205,8 @@ def _both_packages(name: str, members: np.ndarray, draws: int, root: Path):
         port = pool.submit(_port_nuts, name, members, draws,
                            str(root / 'port'))
         (jcfg,) = JaxConfig.from_file(ROOT / job.base)
-        jcfg = jcfg.replace(**_updates(job, root / 'jax', draws))
+        jcfg = jcfg.replace(**_updates(job, root / 'jax', draws),
+                            **(jax_rows or {}))
         jtrainer = JaxTrainer(jcfg)
         jx, jy = jtrainer.loader.arrays('train')
         theirs = jax_run(jtrainer.bayes.logdensity_fn(jx, jy),
@@ -238,7 +257,8 @@ def test_nuts_window_adaptation_from_the_same_members(source, tmp_path):
 def _compare_windows(a: dict, b: dict) -> None:
     """Print both packages' acceptance by window of draws and hold each
     window's mean, and each chain's first-to-last drop, to each other."""
-    wa, wb = _windows(a['accept_draws']), _windows(b['accept_draws'])
+    wa, wb = (nuts_members.windows(a['accept_draws']),
+              nuts_members.windows(b['accept_draws']))
     for k, (w, stats) in (('port', (wa, a)), ('JAX', (wb, b))):
         print(f'{k} acceptance by {WINDOW} draws: '
               + ' '.join(f'{m:.3f}' for m in w.mean(axis=0)))
@@ -279,15 +299,9 @@ def test_acceptance_over_a_jobs_draws_from_the_same_members(subset,
 # in its first three windows of 100)
 ONE_CHAIN = [('bike_nuts_ta80_r2', 5)]
 CHAIN_DRAWS = 300
-# a chain sticks when its acceptance falls this far under the target or
-# a tenth of its draws diverge
-STUCK_BELOW_TARGET = 0.3
-STUCK_DIVERGENT = 0.1
-
-
-def _sticks(stats: dict, target: float, draws: int) -> bool:
-    return bool(stats['accept'][0] < target - STUCK_BELOW_TARGET
-                or stats['divergent'] > STUCK_DIVERGENT * draws)
+# copies of that member in each package: NUTS adapts each chain on its own
+# in both, so they are independent runs of the same member
+REPLICAS = 8
 
 
 @pytest.mark.parametrize('job,member', ONE_CHAIN)
@@ -303,14 +317,44 @@ def test_one_chain_of_a_target_acceptance_job(job, member, tmp_path):
           f'{target}, {CHAIN_DRAWS} draws')
     stuck = {}
     for k, stats in (('port', ours), ('JAX', theirs)):
-        w = _windows(stats['accept_draws'])[0]
-        stuck[k] = _sticks(stats, target, CHAIN_DRAWS)
+        w = nuts_members.windows(stats['accept_draws'])[0]
+        stuck[k] = nuts_members.sticks(stats['accept'][0],
+                                       stats['divergent'], target,
+                                       CHAIN_DRAWS)
         print(f'{k}: ε {stats["eps"][0]:.6f}, acceptance '
               f'{stats["accept"][0]:.4f} (by {WINDOW} draws '
               + ' '.join(f'{m:.3f}' for m in w)
               + f'), evaluations a draw {stats["steps"][0]:.1f}, divergent '
               f'{stats["divergent"]}, sticks {stuck[k]}')
     assert stuck['port'] == stuck['JAX']
+
+
+@pytest.mark.parametrize('job,member', ONE_CHAIN)
+def test_copies_of_one_member_of_a_target_acceptance_job(job, member,
+                                                        tmp_path):
+    provider = card.provider(job)
+    members = card.members(provider)[[member] * REPLICAS]
+    t0 = time.perf_counter()
+    (ours, _), (theirs, _), settings = _both_packages(
+        job, members, CHAIN_DRAWS, tmp_path)
+    target = settings[2]
+    assert settings == (10, None, target, 100)
+    print(f'\n{REPLICAS} copies of member {member} of the card\'s '
+          f'{provider}, {job}: target {target}, {CHAIN_DRAWS} draws, '
+          f'{time.perf_counter() - t0:.0f} s for both packages')
+    records = {}
+    for k, stats in (('port', ours), ('JAX', theirs)):
+        records[k] = nuts_members.summarize(
+            stats['eps'], stats['accept_draws'], stats['divergent_draws'],
+            stats['steps_draws'], target)
+        print(f'{k}: ' + json.dumps(records[k]))
+        print(f'{k}: {records[k]["stuck_first"]} of {REPLICAS} stick; mean '
+              f'log ε {records[k]["log_step_size_mean"]:.4f} ± '
+              f'{records[k]["log_step_size_se"]:.4f}')
+    verdict = nuts_members.compare(records['port'], records['JAX'])
+    print('port vs JAX: ' + json.dumps(verdict))
+    assert verdict['fisher_p'] >= 0.05
+    assert verdict['within_3se']
 
 
 def mean_ess(samples: np.ndarray, name: str) -> float:
@@ -346,3 +390,62 @@ def test_width_48_mean_ess_from_the_cards_members(tmp_path):
     (a, sa), (b, sb) = ess['port'], ess['JAX']
     assert abs(a - b) <= 3 * np.hypot(sa, sb)
     _compare(ours, theirs, DRAWS)
+
+
+# the diagnostics study's airfoil NUTS jobs whose fs_split_rhat lay
+# outside the JAX seeds' interval on the card (r1 below it, r2 above)
+RHAT_JOBS = ['diag_nuts_airfoil_r2', 'diag_nuts_airfoil_r1']
+
+
+def fs_split_rhat(samples: np.ndarray, name: str, root: Path) -> tuple:
+    """The study's ``fs_split_rhat`` of ``samples`` (chains, draws, dim)
+    on the job's test split: the split R-hat (4 splits) of the predictive
+    mean at each test point, averaged over the points, by the port's
+    estimator for either package's draws; and its jackknife standard
+    error over the chains."""
+    import torch
+
+    from mile_tpu_torch.inference import metrics as M
+    from mile_tpu_torch.inference.evaluation import predict_bde
+    from mile_tpu_torch.train.trainer import BDETrainer
+
+    trainer = BDETrainer(_port_config(card.catalogue_job(name), root,
+                                      samples.shape[1]), device='cpu')
+    x, _ = trainer.loader.arrays('test')
+    with torch.no_grad():
+        fs = predict_bde(trainer.model, torch.from_numpy(samples), x)[..., 0]
+    fs = fs[:, :fs.shape[1] - fs.shape[1] % 4]
+    assert torch.isfinite(fs).all()
+
+    def rhat(f) -> float:
+        return float(torch.nanmean(M.gelman_split_r_hat(f, n_splits=4)))
+
+    n = fs.shape[0]
+    loo = np.array([rhat(torch.cat([fs[:c], fs[c + 1:]])) for c in range(n)])
+    return rhat(fs), float(np.sqrt((n - 1) / n
+                                   * np.sum((loo - loo.mean()) ** 2)))
+
+
+@pytest.mark.parametrize('name', RHAT_JOBS)
+def test_airfoil_fs_split_rhat_from_the_cards_members(name, tmp_path):
+    import torch_run_catalog as cat
+
+    members = card.members(name)
+    t0 = time.perf_counter()
+    (ours, port_draws), (theirs, jax_draws), settings = _both_packages(
+        name, members, JOB_DRAWS, tmp_path, jax_rows=cat.TPU_ROWS_NUTS)
+    assert settings == (10, None, 0.8, 100)
+    assert port_draws.shape == jax_draws.shape == (12, JOB_DRAWS, 426)
+    print(f'\nmembers: the card\'s {name}, {JOB_DRAWS} draws, '
+          f'{time.perf_counter() - t0:.0f} s for both packages')
+    rhat = {k: fs_split_rhat(d, name, tmp_path / 'eval')
+            for k, d in (('port', port_draws), ('JAX', jax_draws))}
+    print('fs_split_rhat: port {:.4f} ± {:.4f}, JAX {:.4f} ± {:.4f}'.format(
+        *rhat['port'], *rhat['JAX']))
+    for k, stats in (('port', ours), ('JAX', theirs)):
+        print(f'{k}: ' + json.dumps(nuts_members.summarize(
+            stats['eps'], stats['accept_draws'], stats['divergent_draws'],
+            stats['steps_draws'], 0.8)))
+    (a, sa), (b, sb) = rhat['port'], rhat['JAX']
+    assert abs(a - b) <= 3 * np.hypot(sa, sb)
+    _compare(ours, theirs, JOB_DRAWS)
